@@ -9,22 +9,37 @@ standard library, and runs these phases in order; any failure raises and the
 script exits non-zero, printing no result:
 
   1. card    — the card's name and power limit from ``nvidia-smi``;
-  2. build   — ``nvcc`` builds every kernel of the serving path from
-     ``src/repro_torch/csrc`` (one process per source, all at once);
+  2. build   — ``nvcc`` builds every kernel of the serving and training
+     paths from ``src/repro_torch/csrc`` (one process per source, all at
+     once);
   3. kernel vs plain — each kernel against its plain PyTorch version on
-     the card, at the shapes of ``tests/test_kernels.py``, the serving shape
-     and a long cache, in bfloat16 and float32, with per-row indices that
-     include 0 and L-1;
-  4. main path — ``ServeEngine`` serves SmolLM-360M at full width in
+     the card, in bfloat16 and float32: ``decode_attention`` at the shapes
+     of ``tests/test_kernels.py``, the serving shape and a long cache, with
+     per-row indices that include 0 and L-1; ``ghost_norm`` at the shapes
+     of ``tests/test_kernels.py`` and at the training shapes (B=16, S=256,
+     every dense layer of SmolLM-360M and its head), also with a and g in
+     different dtypes (bf16 and float32 either way round), as a round
+     meets once the parameters are float32;
+  4. serve main path — ``ServeEngine`` serves SmolLM-360M at full width in
      bfloat16 (seeded random weights) over a seeded open-loop trace; every
-     request must complete, and the kernel's launch count must equal
+     request must complete, and the decode kernel's launch count must equal
      n_layers x (decode steps + prefill positions);
-  5. whole path — at full width in float32, ``decode_kernel=True`` against
-     ``decode_kernel=False`` (the model's plain attention): the same greedy
-     tokens, logits within atol 1e-3;
-  6. times — each kernel, its plain version and one PyTorch library call
+  5. serve whole path — at full width in float32, ``decode_kernel=True``
+     against ``decode_kernel=False`` (the model's plain attention): the
+     same greedy tokens, logits within atol 1e-3;
+  6. train main path — ``arms.run("decaph", ...)`` trains SmolLM-360M with
+     an untied head (408,944,640 parameters) at full width for 3 rounds on
+     4 ``token_silos`` hospitals (64 sequences of 256 tokens each, batch
+     16, sigma 1.0) with ghost clipping: 3 rounds complete, the losses are
+     finite, ε is the accountant's, one program call per round, and
+     ``ghost_norm`` launches 225 times per participant and round;
+  7. train whole path — one sigma = 0 round in float32 with the kernel and
+     one with the plain ghost norm: the norms agree at rtol 1e-4 and the
+     two rounds' updates (trained - initial parameters) within 1e-5 in L2;
+  8. times — each kernel, its plain version and one PyTorch library call
      (a yardstick the port never calls) on CUDA events, beside the least
-     time the card could take.
+     time the card could take; a training round's wall time, and a
+     profiled round's device busy time and ``ghost_norm`` share.
 
 The next-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
@@ -32,6 +47,7 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -40,6 +56,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -48,12 +65,21 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import repro_torch.arms as arms  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import param_count  # noqa: E402
+from repro_torch.core import ghost as ghost_lib  # noqa: E402
+from repro_torch.core.accountant import RDPAccountant  # noqa: E402
+from repro_torch.core.dp import DPConfig  # noqa: E402
 from repro_torch.instrument import jit_dispatches, reset_jit_dispatches  # noqa: E402
 from repro_torch.kernels import KERNEL_SOURCES, _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain  # noqa: E402
+from repro_torch.kernels.ghost_norm import ops as ghost_ops  # noqa: E402
+from repro_torch.kernels.ghost_norm.ops import ghost_norm_blocked  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.serve.federation import token_silos, transformer_model  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.serve.engine import ServeConfig, ServeEngine, batch_generate  # noqa: E402
 from repro_torch.serve.metrics import summarize  # noqa: E402
 from repro_torch.serve.traffic import TrafficConfig, generate_requests, run_open_loop  # noqa: E402
@@ -83,12 +109,35 @@ KERNEL_CASES = [
     (8, 512, 15, 1, 64, None, 128),
 ]
 
-# one entry per kernel on the serving path
+# ghost_norm (b, s, d_in, d_out): the shapes of tests/test_kernels.py, then
+# the training shapes — B=16 rows of S=256 tokens through SmolLM-360M's dense
+# layers (q and o 960->960, k and v 960->320, up and gate 960->2560, down
+# 2560->960) and its untied head (960->49152) — with the launches of each per
+# participant and round
+GHOST_TEST_CASES = [(2, 64, 32, 16), (1, 96, 48, 48), (3, 128, 64, 8),
+                    (2, 32, 16, 16)]
+GHOST_TRAIN_SHAPES = {(16, 256, 960, 960): 64, (16, 256, 960, 320): 64,
+                      (16, 256, 960, 2560): 64, (16, 256, 2560, 960): 32,
+                      (16, 256, 960, 49152): 1}
+GHOST_ROW_SHAPE = (16, 256, 960, 2560)   # the kernels line's ghost_norm times
+GHOST_RTOL = 1e-4   # kernel vs plain: the same float32 sums, other order
+
+# the training run: 4 hospitals x 64 sequences of 256 tokens, batch 16
+TRAIN = dict(hospitals=4, n_per=64, seq_len=256, rounds=3, batch_size=16,
+             lr=0.05, clip=1.0, sigma=1.0)
+TRAIN_PARAMS = 408_944_640   # SmolLM-360M, untied head (param_count: no norms)
+
+# one entry per kernel on the serving and training paths
 KERNELS = [{
     "name": "decode_attention",
     "route": "cuda",
     "source": "src/repro_torch/csrc/decode_attention.cu",
     "replaces": "src/repro/kernels/decode_attention/kernel.py:68",
+}, {
+    "name": "ghost_norm",
+    "route": "cuda",
+    "source": "src/repro_torch/csrc/ghost_norm.cu",
+    "replaces": "src/repro/kernels/ghost_norm/kernel.py:44",
 }]
 
 
@@ -172,7 +221,61 @@ def kernel_vs_plain(dev) -> float:
     return worst
 
 
-# -- 4. the main path -----------------------------------------------------------
+def _ghost_inputs(b, s, d_in, d_out, dtype, seed, dev, *, unit=False,
+                  g_dtype=None):
+    """a and g for one ghost-norm call, a in ``dtype`` and g in ``g_dtype``
+    (default: ``dtype``).  ``unit``: activations of unit scale and
+    cotangents scaled so each example's norm^2 is about 1, as in training;
+    otherwise the scales of tests/test_kernels.py."""
+    g_ = torch.Generator(device=dev).manual_seed(seed)
+    sa, sg = (1.0, 1.0 / math.sqrt(s * d_in * d_out)) if unit else (0.5, 0.1)
+    a = (sa * torch.randn((b, s, d_in), generator=g_, device=dev)).to(dtype)
+    g = (sg * torch.randn((b, s, d_out), generator=g_, device=dev)).to(
+        g_dtype or dtype)
+    return a, g
+
+
+# (a, g) dtypes: the same in both, and the mixed pairs a training round
+# meets once float32 gradients have promoted the parameters (layer 0's q,
+# k and v projections take bf16 activations and float32 cotangents)
+GHOST_DTYPES = [(torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.float32),
+                (torch.bfloat16, torch.float32),
+                (torch.float32, torch.bfloat16)]
+
+
+def ghost_vs_plain(dev) -> float:
+    """ghost_norm against its plain version on every case in every (a, g)
+    dtype pair (|kernel - plain| <= GHOST_RTOL * |plain| + 1e-6); returns
+    the largest |kernel - plain|."""
+    worst = 0.0
+    cases = [(c, False) for c in GHOST_TEST_CASES] + \
+        [(c, True) for c in GHOST_TRAIN_SHAPES]
+    for i, ((b, s, d_in, d_out), unit) in enumerate(cases):
+        for a_dtype, g_dtype in GHOST_DTYPES:
+            a, g = _ghost_inputs(b, s, d_in, d_out, a_dtype, i, dev,
+                                 unit=unit, g_dtype=g_dtype)
+            out = ghost_ops.ghost_norm(a, g)
+            ref = ghost_norm_blocked(a, g)
+            torch.cuda.synchronize()
+            if out.shape != (b,) or out.dtype != torch.float32:
+                raise AssertionError(f"kernel output {tuple(out.shape)} "
+                                     f"{out.dtype}, expected ({b},) float32")
+            err = (out - ref).abs()
+            ok = bool(torch.all(err <= GHOST_RTOL * ref.abs() + 1e-6))
+            rel = float((err / ref.abs().clamp(min=1e-30)).max())
+            say(f"kernel vs plain: ghost_norm B={b} S={s} d_in={d_in} "
+                f"d_out={d_out} a {str(a_dtype)[6:]}, g {str(g_dtype)[6:]}: "
+                f"max|err| {float(err.max()):.3e}, max rel {rel:.3e} (rtol "
+                f"{GHOST_RTOL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("ghost_norm disagrees with its plain "
+                                     "version")
+            worst = max(worst, float(err.max()))
+    return worst
+
+
+# -- 4. the serve main path -----------------------------------------------------------
 
 
 def main_path(dev, smi: str):
@@ -226,7 +329,7 @@ def main_path(dev, smi: str):
     return engine, {"decode_attention": launches}
 
 
-# -- 5. the whole path, kernel against the model's plain attention ---------------
+# -- 5. the serve whole path, kernel against the model's plain attention ---------
 
 
 def whole_path(dev) -> None:
@@ -276,7 +379,156 @@ def whole_path(dev) -> None:
                              "over the whole path")
 
 
-# -- 6. times -------------------------------------------------------------------
+# -- 6. the training main path ------------------------------------------------
+
+
+def _train_cfg(rounds: int, sigma: float) -> arms.ArmConfig:
+    return arms.ArmConfig(
+        rounds=rounds, batch_size=TRAIN["batch_size"], lr=TRAIN["lr"],
+        seed=SEED, use_secagg=False,
+        dp=DPConfig(clip_norm=TRAIN["clip"], noise_multiplier=sigma))
+
+
+def _silos(mcfg):
+    return token_silos(mcfg, hospitals=TRAIN["hospitals"],
+                       n_per=TRAIN["n_per"], seq_len=TRAIN["seq_len"],
+                       seed=SEED)
+
+
+def train_main_path(dev, smi) -> dict:
+    """DeCaPH rounds with ghost clipping at full width; returns the
+    ghost_norm launches of the run and its round wall times."""
+    mcfg = get_config(ARCH).replace(tie_embeddings=False)
+    if param_count(mcfg) != TRAIN_PARAMS:
+        raise AssertionError(f"{param_count(mcfg)} parameters, expected "
+                             f"{TRAIN_PARAMS}")
+    model = transformer_model(mcfg, device=str(dev))
+    silos = _silos(mcfg)
+    cfg = _train_cfg(TRAIN["rounds"], TRAIN["sigma"])
+    marks, dtypes = [], []
+
+    def on_round(t, params):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        dtypes.append(sorted({str(p.dtype)[6:] for p in tree_leaves(params)}))
+
+    torch.cuda.reset_peak_memory_stats()
+    ghost_ops.reset_launches()
+    reset_jit_dispatches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = arms.run("decaph", model, silos, cfg, backend="ideal",
+                      on_round=on_round)
+    launches = ghost_ops.launches()
+    calls = jit_dispatches()
+
+    n_params = sum(p.numel() for p in tree_leaves(report.params))
+    norm_scales = (2 * mcfg.n_layers + 1) * mcfg.d_model
+    if n_params != TRAIN_PARAMS + norm_scales:
+        raise AssertionError(f"trained {n_params} parameters, expected "
+                             f"{TRAIN_PARAMS} + {norm_scales} norm scales")
+    if report.rounds_completed != TRAIN["rounds"] or len(marks) != \
+            TRAIN["rounds"]:
+        raise AssertionError(f"{report.rounds_completed} rounds completed, "
+                             f"expected {TRAIN['rounds']}")
+    losses = [l.loss for l in report.logs]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite round losses {losses}")
+    if not all(bool(torch.isfinite(p).all())
+               for p in tree_leaves(report.params)):
+        raise AssertionError("non-finite trained parameters")
+    acct = RDPAccountant(sampling_rate=TRAIN["batch_size"]
+                         / (TRAIN["hospitals"] * TRAIN["n_per"]),
+                         noise_multiplier=TRAIN["sigma"], delta=cfg.dp.delta)
+    acct.step(TRAIN["rounds"])
+    if report.epsilon != acct.epsilon():
+        raise AssertionError(f"ε {report.epsilon} != the accountant's "
+                             f"{acct.epsilon()}")
+    if calls != TRAIN["rounds"]:
+        raise AssertionError(f"{calls} program calls for "
+                             f"{TRAIN['rounds']} fused rounds")
+    per_participant = 7 * mcfg.n_layers + 1
+    expected = per_participant * TRAIN["hospitals"] * TRAIN["rounds"]
+    if launches != expected:
+        raise AssertionError(f"ghost_norm launched {launches} times, "
+                             f"expected {per_participant} x "
+                             f"{TRAIN['hospitals']} participants x "
+                             f"{TRAIN['rounds']} rounds = {expected}")
+    round_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    say(f"train main path: {ARCH} untied head, {TRAIN_PARAMS:,} parameters "
+        f"(+ {norm_scales:,} norm scales), full"
+        f" width, {TRAIN['hospitals']} hospitals x {TRAIN['n_per']} x "
+        f"{TRAIN['seq_len']} tokens, batch {TRAIN['batch_size']}, sigma "
+        f"{TRAIN['sigma']}, ghost clipping, on {smi}: {report.rounds_completed}"
+        f" rounds, aggregate batches "
+        f"{[l.aggregate_batch for l in report.logs]}, losses "
+        f"{[round(x, 4) for x in losses]}, ε {report.epsilon:.6f} (accountant"
+        f" {acct.epsilon():.6f}), {calls} program calls, ghost_norm launches "
+        f"{launches} ({per_participant} per participant and round), round "
+        f"wall s {[round(x, 4) for x in round_s]}, parameter dtypes after "
+        f"each round {dtypes}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"launches": launches, "round_s": round_s, "model": model,
+            "silos": silos, "params": report.params}
+
+
+def train_whole_path(dev, silos) -> None:
+    """One sigma = 0 round in float32 with the kernel and one with the plain
+    ghost norm, from the same parameters.  The norms agree at rtol 1e-4.
+    The round's update is lr * (sum of clipped gradients) / batch, and a
+    relative norm error e moves each clipped gradient (of L2 norm <= C) by
+    at most C * e in L2, so the two updates (trained - initial parameters,
+    over the whole tree) differ by at most lr * C * 1e-4 = 5e-6 in L2; the
+    limit is twice that, for float32 sums ordered differently.  Updates, not
+    parameters: one clipped step spreads at most lr * C over 409M elements,
+    below any useful per-element tolerance on the parameters themselves."""
+    mcfg = get_config(ARCH).replace(tie_embeddings=False,
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+    model = transformer_model(mcfg, device=str(dev))
+    params = model.init_fn(SEED)
+    model = dataclasses.replace(model, init_fn=lambda seed: params)
+    x = torch.from_numpy(silos[0].x[:16]).to(dev)
+    batch = {"tokens": x.long(),
+             "labels": torch.from_numpy(silos[0].y[:16]).to(dev).long()}
+    mask = torch.zeros(16, device=dev)
+    mask[:4] = 1.0
+    norms, trained = {}, {}
+    for kernel in (True, False):
+        impl = ghost_ops.ghost_norm if kernel else ghost_norm_blocked
+        with mock.patch.object(ghost_lib, "ghost_norm", impl):
+            before = ghost_ops.launches()
+            _, _, norms[kernel] = ghost_lib.ghost_clipped_grad_sum(
+                mcfg, params, batch, clip_norm=TRAIN["clip"], mask=mask)
+            trained[kernel] = arms.run("decaph", model, silos,
+                                       _train_cfg(1, 0.0)).params
+            if (ghost_ops.launches() > before) != kernel:
+                raise AssertionError("the kernel was launched where it "
+                                     "should not be, or not where it should")
+    nk, npl = norms[True], norms[False]
+    norm_ok = bool(torch.all((nk - npl).abs() <= 1e-4 * npl.abs())) and \
+        bool(torch.all(nk[4:] == 0))
+    diff_sq = upd_sq = 0.0
+    for p0, pk, pp in zip(tree_leaves(params), tree_leaves(trained[True]),
+                          tree_leaves(trained[False])):
+        uk, up = pk.double() - p0.double(), pp.double() - p0.double()
+        diff_sq += float((uk - up).square().sum())
+        upd_sq += float(up.square().sum())
+    diff, upd = math.sqrt(diff_sq), math.sqrt(upd_sq)
+    limit = 2 * TRAIN["lr"] * TRAIN["clip"] * 1e-4
+    ok = norm_ok and diff <= limit and upd > 0
+    say(f"train whole path: {ARCH} untied head, full width float32, sigma 0, "
+        f"kernel vs plain ghost norm: norms {[round(float(v), 6) for v in nk[:4]]}"
+        f" vs {[round(float(v), 6) for v in npl[:4]]} (rtol 1e-4, pad rows "
+        f"0); one round's update, L2 over the tree: plain {upd:.6e}, "
+        f"|kernel - plain| {diff:.3e} (limit {limit:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the ghost-norm kernel and the plain ghost norm "
+                             "disagree over a training round")
+
+
+# -- 7. times -------------------------------------------------------------------
 
 
 @functools.cache
@@ -388,6 +640,146 @@ def time_decode(shape, dev, smi) -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+def _library_ghost(a, g):
+    # the per-example-gradient approach: materialise A_b^T G_b with one
+    # batched product, then its squared Frobenius norm (a yardstick only;
+    # the port never calls it)
+    return torch.bmm(a.mT, g).float().square().sum(dim=(1, 2))
+
+
+def ghost_bound_ms(a, g) -> tuple[float, str]:
+    """Least time for one call: a and g read once and [B] float32 written,
+    over the HBM rate; against the two Gram products' upper triangles (the
+    Grams are symmetric), B*S*(S+1)*(d_in+d_out) operations, over the peak
+    for the wider of the two dtypes."""
+    b, s, d_in = a.shape
+    nbytes = a.numel() * a.element_size() + g.numel() * g.element_size() \
+        + 4 * b
+    ops = b * s * (s + 1) * (d_in + g.shape[2])
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / min(PEAK_OPS_PER_S[a.dtype], PEAK_OPS_PER_S[g.dtype])
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def time_ghost(dev, smi) -> dict:
+    """ghost_norm, its plain version and the library yardstick at every
+    training shape in both dtypes; returns the GHOST_ROW_SHAPE bfloat16
+    times for the kernels line and prints each participant's sum."""
+    rows, per_participant = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        for i, (shape, count) in enumerate(GHOST_TRAIN_SHAPES.items()):
+            b, s, d_in, d_out = shape
+            per_copy = b * s * (d_in + d_out) * (2 if dtype ==
+                                                 torch.bfloat16 else 4)
+            copies = max(2, math.ceil(2 * L2_BYTES / per_copy))
+            sets = [_ghost_inputs(b, s, d_in, d_out, dtype, 200 + 10 * i + c,
+                                  dev, unit=True) for c in range(copies)]
+            a, g = sets[0]
+            lib_err = float(((_library_ghost(a, g) - ghost_norm_blocked(a, g))
+                             .abs() / ghost_norm_blocked(a, g).abs()).max())
+            if not lib_err <= 3e-2:
+                raise AssertionError(f"library call disagrees with the plain "
+                                     f"version by {lib_err:.3e} (relative)")
+            reps = 20 if d_out > 10_000 else 40
+            row = {"ms": device_ms(ghost_ops.ghost_norm, sets, reps),
+                   "plain_ms": device_ms(ghost_norm_blocked, sets, reps),
+                   "library_ms": device_ms(_library_ghost, sets, reps)}
+            row["bound_ms"], row["bound_by"] = ghost_bound_ms(a, g)
+            say(f"times: ghost_norm B={b} S={s} d_in={d_in} d_out={d_out} "
+                f"{str(dtype)[6:]}, {copies} rotating copies, median of "
+                f"{reps}, on {smi}: kernel {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, library (bmm + squared norm) "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}; {100 * row['bound_ms'] / row['ms']:.1f}%"
+                f" of bound); {count} per participant and round")
+            rows[(shape, dtype)] = row
+            for k in total:
+                total[k] += count * row[k]
+            del sets, a, g
+        per_participant[dtype] = total
+        say(f"times: ghost_norm per participant and round ({sum(GHOST_TRAIN_SHAPES.values())}"
+            f" launches) {str(dtype)[6:]}, on {smi}: kernel "
+            f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, library "
+            f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms")
+    return {"row": rows[(GHOST_ROW_SHAPE, torch.bfloat16)],
+            "per_participant": per_participant}
+
+
+def _self_device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        us = getattr(evt, name, None)
+        if us is not None:
+            return float(us)
+    return 0.0
+
+
+def profile_round(dev, smi, train, ghost) -> None:
+    """One steady-state round: float32 (as rounds 2 and on are), from the
+    trained parameters, its arm built beforehand.  After a warm-up round
+    (the allocator refills after the times phase), it runs once on the
+    host clock and once more under ``torch.profiler``, which gives the
+    device's busy time (the sum of every kernel's device time) and
+    ghost_norm's share of it; the device idle share is busy time against
+    the unprofiled wall time.  Beside it the main-path round times and the
+    kernel share that the times phase's medians imply."""
+    steady = dataclasses.replace(train["model"],
+                                 init_fn=lambda seed: train["params"])
+    cfg = _train_cfg(1, TRAIN["sigma"])
+    t0 = time.perf_counter()
+    arm = arms.get("decaph")(steady, train["silos"], cfg)
+    build_s = time.perf_counter() - t0
+    warm, arm_again = (arms.get("decaph")(steady, train["silos"], cfg)
+                       for _ in range(2))
+    arms.LocalRunner().run(warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arms.LocalRunner().run(arm)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        arms.LocalRunner().run(arm_again)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = ghost_us = 0.0
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = _self_device_us(evt)
+        busy_us += us
+        if "ghost_norm" in evt.key:
+            ghost_us += us
+    round_s = train["round_s"]
+    est = {dt: TRAIN["hospitals"] * ghost["per_participant"][dt]["ms"]
+           for dt in (torch.bfloat16, torch.float32)}
+    say(f"train round: {ARCH} untied head full width, {TRAIN['hospitals']} "
+        f"participants, on {smi}: main-path round wall s "
+        f"{[round(x, 4) for x in round_s]} (round 1 computes in bfloat16 and "
+        f"includes building the model and the arm; stepping float32 "
+        f"gradients makes the parameters float32, so rounds 2 and on compute"
+        f" in float32); ghost_norm at the times phase's medians: "
+        f"{est[torch.bfloat16]:.2f} ms per bfloat16 round, "
+        f"{est[torch.float32]:.2f} ms per float32 round = "
+        f"{100 * est[torch.float32] / (1e3 * round_s[-1]):.1f}% of round "
+        f"{len(round_s)}; building the arm {build_s:.3f} s")
+    if busy_us <= 0:
+        say(f"train round profile: steady float32 round wall {wall_ms:.1f} "
+            f"ms; torch.profiler recorded no device time on this machine, so"
+            f" device busy and idle share are not measured")
+        return
+    say(f"train round profile: steady float32 round, on {smi}: wall "
+        f"{wall_ms:.1f} ms ({prof_ms:.1f} ms with the profiler on), device "
+        f"busy {busy_us / 1e3:.1f} ms, device idle "
+        f"{100 * (1 - busy_us / 1e3 / wall_ms):.1f}% of the round; "
+        f"ghost_norm {ghost_us / 1e3:.1f} ms = {100 * ghost_us / busy_us:.1f}%"
+        f" of device busy time, {100 * ghost_us / 1e3 / wall_ms:.1f}% of the "
+        f"round")
+
+
 def time_decode_step(engine, smi, position: int = 64) -> None:
     """One full-width decode step of every slot at ``position``: its time on
     the host clock (call + synchronise), its time on the device (the same
@@ -432,21 +824,32 @@ def time_decode_step(engine, smi, position: int = 64) -> None:
 
 def main() -> int:
     smi = card()
+    say(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.perf_counter()
     build()
-    worst = kernel_vs_plain(dev)
+    worst = {"decode_attention": kernel_vs_plain(dev),
+             "ghost_norm": ghost_vs_plain(dev)}
     engine, launches = main_path(dev, smi)
     time_decode_step(engine, smi)
     del engine
     whole_path(dev)
-    serve_times = time_decode(SERVE_SHAPE, dev, smi)
+    torch.cuda.empty_cache()
+    train = train_main_path(dev, smi)
+    launches["ghost_norm"] = train["launches"]
+    train_whole_path(dev, train["silos"])
+    torch.cuda.empty_cache()
+    times = {"decode_attention": time_decode(SERVE_SHAPE, dev, smi)}
     time_decode(LONG_SHAPE, dev, smi)
-    lines = [{**KERNELS[0], "launches": launches["decode_attention"],
-              "max_abs_err": worst, **serve_times}]
+    ghost = time_ghost(dev, smi)
+    times["ghost_norm"] = ghost["row"]
+    profile_round(dev, smi, train, ghost)
+    lines = [{**k, "launches": launches[k["name"]],
+              "max_abs_err": worst[k["name"]], **times[k["name"]]}
+             for k in KERNELS]
     if any(k["launches"] < 1 for k in lines):
-        raise AssertionError("a kernel of the serving path never launched")
+        raise AssertionError("a kernel of the main paths never launched")
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s "
         f"on {smi}")
     say(json.dumps({"kernels": lines}))

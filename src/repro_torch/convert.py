@@ -6,6 +6,10 @@ names (``group0/e0/mixer/wq|embed,qheads`` ...).  Arrays cross as numpy:
   * ``params_from_jax(np_params, cfg)`` takes the reference's params
     pytree with numpy leaves (each layer leaf with its leading layers
     axis) and returns the port's parameter dict;
+  * ``params_to_numpy(params, cfg)`` is its inverse: the port's parameters
+    (or a gradient tree of the same layout) in the reference's pytree, as
+    float32 numpy arrays, so tests can compare trained parameters and
+    gradients leaf by leaf;
   * ``cache_to_numpy(cache)`` returns the port's cache in the reference's
     layout, ``{"group0": {"e0": {"attn": {"k", "v"}}}}`` of shape
     [n_layers, B, L, KV, hd], so tests can compare caches leaf by leaf.
@@ -62,8 +66,29 @@ def params_from_jax(np_params: dict, cfg, device="cpu") -> dict:
     return params
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def params_to_numpy(params: dict, cfg) -> dict:
+    """The port's parameters in the reference's pytree (float32 numpy)."""
+    check_supported(cfg)
+    layer: dict = {}
+    for name, t in params["layers"].items():
+        sub, key = _LAYER_KEYS[name]
+        layer.setdefault(sub, {})[key] = _numpy(t)
+    out = {
+        pname("embed", "vocab", "embed"): _numpy(params["embed"]),
+        "final_norm": {pname("scale", "embed"): _numpy(params["final_norm"])},
+        "group0": {"e0": layer},
+    }
+    if not cfg.tie_embeddings:
+        out[pname("head", "embed", "vocab")] = _numpy(params["head"])
+    return out
+
+
 def cache_to_numpy(cache: dict) -> dict:
     """The cache in the reference's layout, as float32 numpy arrays."""
     return {"group0": {"e0": {"attn": {
-        name: cache[name].detach().float().cpu().numpy() for name in ("k", "v")
+        name: _numpy(cache[name]) for name in ("k", "v")
     }}}}

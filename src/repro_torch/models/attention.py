@@ -1,12 +1,19 @@
-"""Grouped-query attention for decoding, with an explicit per-row position.
+"""Grouped-query attention: full sequences, and decoding per row.
 
-Counterpart of the GQA half of ``repro.models.attention``.  The reference's
-``gqa_decode`` takes one scalar ``index`` and gets per-slot positions from
-``jax.vmap`` (``transformer.decode_step_positions``); the port writes that
-batch dimension out: ``index`` is an int32 ``[B]`` tensor on the device,
-and the rope angle, the cache write and the mask of row b all use
-``index[b]`` without a host sync.  MLA and cross attention are not ported
-yet.
+Counterpart of the GQA half of ``repro.models.attention``.
+
+  * ``gqa_apply`` — full-sequence (training) attention through the
+    float32 ``_sdpa`` and an additive ``_causal_mask``: plain products
+    that the reference leaves to XLA.  ``use_flash`` (the
+    ``flash_attention`` kernel) is not ported yet.
+  * ``gqa_decode`` — one token per row.  The reference's ``gqa_decode``
+    takes one scalar ``index`` and gets per-slot positions from
+    ``jax.vmap`` (``transformer.decode_step_positions``); the port writes
+    that batch dimension out: ``index`` is an int32 ``[B]`` tensor on the
+    device, and the rope angle, the cache write and the mask of row b all
+    use ``index[b]`` without a host sync.
+
+MLA and cross attention are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import math
 import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, matmul
 
 NEG_INF = -1e30
 
@@ -62,6 +69,46 @@ def _sdpa(q, k, v, mask):
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
+def _causal_mask(s: int, l: int, offset: int = 0, window: int | None = None,
+                 device=None) -> torch.Tensor:
+    """Additive float32 [1,1,S,L] mask: query i attends keys j <= i+offset,
+    and j > i+offset-window when a window is set."""
+    qi = torch.arange(s, device=device)[:, None] + offset
+    kj = torch.arange(l, device=device)[None, :]
+    ok = kj <= qi
+    if window is not None:
+        ok &= kj > qi - window
+    return torch.where(ok, 0.0, NEG_INF)[None, None]
+
+
+def gqa_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
+              window: int | None = None, causal: bool = True) -> torch.Tensor:
+    """Full-sequence GQA.  x: [B,S,D]; positions: [B,S] -> [B,S,D]."""
+    if cfg.use_flash:
+        raise NotImplementedError("use_flash needs the flash_attention "
+                                  "kernel, which is not ported yet")
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _split_heads(matmul(x, p["wq"]), h, hd)
+    k = _split_heads(matmul(x, p["wk"]), kv, hd)
+    v = _split_heads(matmul(x, p["wv"]), kv, hd)
+    q, k = rope(q, k, positions, cfg)
+    mask = _causal_mask(s, s, 0, window, x.device) if causal else None
+    out = _sdpa(q, k, v, mask)
+    return matmul(out.reshape(b, s, h * hd), p["wo"])
+
+
+def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, cfg
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotary embedding of q and k at ``positions`` (none for ``"none"``)."""
+    if cfg.rope_type == "mrope":
+        raise NotImplementedError("M-RoPE is not ported yet")
+    if cfg.rope_type == "none":
+        return q, k
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
 def gqa_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
                cfg, *, window: int | None = None
                ) -> tuple[torch.Tensor, dict]:
@@ -79,12 +126,7 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
     q = _split_heads(x @ p["wq"], h, hd)
     k_new = _split_heads(x @ p["wk"], kv, hd)
     v_new = _split_heads(x @ p["wv"], kv, hd)
-    if cfg.rope_type == "mrope":
-        raise NotImplementedError("M-RoPE decode is not ported yet")
-    if cfg.rope_type != "none":
-        pos = index[:, None]                                   # [B,1]
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    q, k_new = rope(q, k_new, index[:, None], cfg)             # pos [B,1]
     rows = (torch.arange(b, device=x.device), index.long())
     k_cache.index_put_(rows, k_new[:, 0].to(k_cache.dtype))
     v_cache.index_put_(rows, v_new[:, 0].to(v_cache.dtype))

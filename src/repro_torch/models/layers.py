@@ -20,6 +20,18 @@ def pname(name: str, *axes: str) -> str:
     return f"{name}|{','.join(axes)}"
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted dtype of the two, as ``jnp.matmul`` does.
+
+    Training steps float32 gradients into bfloat16 parameters, so after
+    the first round the parameters are float32 while activations may be
+    bfloat16; the reference promotes such products, and torch's ``@``
+    refuses mixed dtypes.
+    """
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
@@ -85,12 +97,12 @@ def ffn_init(d_model: int, d_ff: int, kind: str, dtype: torch.dtype,
 
 
 def ffn_apply(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
-    up = x @ p["w_up"]
+    up = matmul(x, p["w_up"])
     if kind in ("swiglu", "geglu"):
-        h = _act(kind, x @ p["w_gate"]) * up
+        h = _act(kind, matmul(x, p["w_gate"])) * up
     else:
         h = _act(kind, up)
-    return h @ p["w_down"]
+    return matmul(h, p["w_down"])
 
 
 # ---------------------------------------------------------------------------

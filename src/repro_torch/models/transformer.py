@@ -1,10 +1,13 @@
-"""The dense decoder stack: init, KV cache, decode step and prefill.
+"""The dense decoder stack: init, forward and loss, KV cache and decode.
 
-Counterpart of the decode half of ``repro.models.transformer`` for dense
-attention stacks (every layer ``LayerSpec("attn", "dense")``, RMSNorm);
-any other mixer, MoE, cross attention or encoder-decoder raises.
+Counterpart of ``repro.models.transformer`` for dense attention stacks
+(every layer ``LayerSpec("attn", "dense")``, RMSNorm); any other mixer,
+MoE, cross attention or encoder-decoder raises.
 
   init(cfg, seed, device)                      -> params
+  forward(cfg, params, batch)                  -> (logits [B,S,V], aux)
+  loss_fn(cfg, params, batch)                  -> scalar (token-mean CE)
+  per_example_loss_fn(cfg, params, example)    -> scalar (one example, DP)
   init_cache(cfg, batch, max_len, device)      -> cache
   decode_step(cfg, params, cache, tokens, index)           -> (logits, cache)
   decode_step_positions(cfg, params, cache, tokens, positions)
@@ -23,8 +26,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import dense_stack
-from repro_torch.models.attention import gqa_decode, gqa_init
-from repro_torch.models.layers import ffn_apply, ffn_init, rmsnorm, trunc_normal
+from repro_torch.models.attention import gqa_apply, gqa_decode, gqa_init
+from repro_torch.models.layers import (
+    ffn_apply,
+    ffn_init,
+    matmul,
+    rmsnorm,
+    trunc_normal,
+)
 
 
 def check_supported(cfg) -> None:
@@ -69,6 +78,87 @@ def init(cfg, seed: int, device) -> dict:
     return params
 
 
+def layer_params(stacked: dict) -> list[dict]:
+    """Per-layer parameter dicts from the stacked ``params["layers"]``.
+
+    ``unbind`` once, not ``t[i]`` per layer: the backward of ``unbind`` is
+    one stack of the layer gradients, where 32 selects would each write a
+    full-size zero gradient.
+    """
+    names = list(stacked)
+    return [dict(zip(names, vals))
+            for vals in zip(*(stacked[n].unbind(0) for n in names))]
+
+
+def positions_of(batch: dict, b: int, s: int, device) -> torch.Tensor:
+    """The batch's [B,S] positions, 0..S-1 per row unless it carries them."""
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=device)[None].expand(b, s)
+    return positions
+
+
+def head_of(cfg, params: dict) -> torch.Tensor:
+    """The [D,V] output projection (the embedding's transpose when tied)."""
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def forward(cfg, params: dict, batch: dict) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Full-sequence forward -> (logits [B,S,V], aux_loss).
+
+    ``batch["tokens"]`` is [B,S] integer.  Products promote as the
+    reference's do (``layers.matmul``); the aux loss is 0 for dense stacks.
+    """
+    tokens = batch["tokens"].long()
+    x = params["embed"][tokens].to(cfg.cdtype)
+    b, s, _ = x.shape
+    positions = positions_of(batch, b, s, x.device)
+    for p in layer_params(params["layers"]):
+        h = rmsnorm(x, p["norm1"])
+        x = x + gqa_apply(p, h, positions, cfg, window=cfg.sliding_window)
+        h = rmsnorm(x, p["norm2"])
+        x = x + ffn_apply(p, h, cfg.ffn_kind)
+    x = rmsnorm(x, params["final_norm"])
+    logits = matmul(x, head_of(cfg, params).to(cfg.cdtype))
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _masked_nll(logits: torch.Tensor, labels: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token negative log-likelihood in float32, zero where labels < 0,
+    and the float mask of real tokens."""
+    mask = (labels >= 0).float()
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return (logz - gold) * mask, mask
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross entropy over the whole batch; labels < 0 are masked."""
+    nll, mask = _masked_nll(logits, labels)
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def per_example_ce(logits: torch.Tensor, labels: torch.Tensor
+                   ) -> torch.Tensor:
+    """[B] token-mean cross entropy per row; labels < 0 are masked."""
+    nll, mask = _masked_nll(logits, labels)
+    return torch.sum(nll, dim=-1) / torch.clamp(torch.sum(mask, dim=-1),
+                                                min=1.0)
+
+
+def loss_fn(cfg, params: dict, batch: dict) -> torch.Tensor:
+    logits, _ = forward(cfg, params, batch)
+    return _ce(logits, batch["labels"])
+
+
+def per_example_loss_fn(cfg, params: dict, example: dict) -> torch.Tensor:
+    """One-example loss for per-example (DP) gradients."""
+    return loss_fn(cfg, params, {k: v[None] for k, v in example.items()})
+
+
 def init_cache(cfg, batch: int, max_len: int, device) -> dict:
     check_supported(cfg)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -95,8 +185,7 @@ def decode_step_positions(cfg, params: dict, cache: dict,
         h = rmsnorm(x, p["norm2"])
         x = x + ffn_apply(p, h, cfg.ffn_kind)
     x = rmsnorm(x, params["final_norm"])
-    head = emb.T if cfg.tie_embeddings else params["head"]
-    return x @ head.to(cfg.cdtype), cache
+    return x @ head_of(cfg, params).to(cfg.cdtype), cache
 
 
 def decode_step(cfg, params: dict, cache: dict, tokens: torch.Tensor,

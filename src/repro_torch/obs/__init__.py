@@ -1,20 +1,21 @@
 """repro_torch.obs — the port's tracing switch and recording API.
 
-The port's own copy of the switch and recording half of ``repro.obs``
-(the privacy ledger and the ``jax.profiler`` bridge are left out).
-Recording is OFF by default, and a disabled recorder is a structural
-no-op: ``span()`` returns a shared ``nullcontext`` and ``counter()``
-returns at once, so nothing on the hot path syncs the device or adds work.
+The port's own copy of ``repro.obs`` (the ``jax.profiler`` bridge is left
+out).  Recording is OFF by default, and a disabled recorder is a
+structural no-op: ``span()`` returns a shared ``nullcontext`` and
+``counter()`` / ``ledger_round()`` return at once, so nothing on the hot
+path syncs the device or adds work.
 
     import repro_torch.obs as obs
 
     with obs.recording() as rec:
-        ...                                      # serve, decode, ...
-        obs.export("obs_out")                    # events + Chrome trace
+        ...                                      # serve, train, ...
+        obs.export("obs_out")                    # events + ledger + trace
 
 Artifacts (``obs.export(dir)``): ``events.jsonl``, the raw event stream
-(schema in ``recorder.py``), and ``trace.json``, its Chrome-trace /
-Perfetto conversion.
+(schema in ``recorder.py``); ``ledger.jsonl``, the hash-chained privacy
+ledger (schema in ``ledger.py``); and ``trace.json``, the Chrome-trace /
+Perfetto conversion of the events.
 """
 
 from __future__ import annotations
@@ -23,9 +24,16 @@ import contextlib
 import os
 import threading
 from pathlib import Path
-from typing import Any, Iterator
+from typing import Any, Iterable, Iterator
 
 from repro_torch.obs.convert import chrome_trace, write_chrome_trace
+from repro_torch.obs.ledger import (
+    LedgerError,
+    PrivacyLedger,
+    per_hospital_epsilon,
+    read_entries,
+    validate_entries,
+)
 from repro_torch.obs.recorder import (
     EventStreamError,
     Recorder,
@@ -112,15 +120,38 @@ def counter(name: str, inc: float = 1.0, **args: Any) -> None:
         rec.counter(name, inc, **args)
 
 
+def ledger_round(arm: Any, *, round: int, backend: str,
+                 cohort: Iterable[int], delivered: Iterable[int],
+                 bytes_up: float, topup: bool = False) -> None:
+    """Append one accounted round to the privacy ledger (one entry per
+    hospital).  ``arm`` is duck-typed (``name``, ``h``, ``cfg``,
+    ``epsilon()``).  Call AFTER ``arm.account()``: the ledger records the
+    post-round cumulative ε."""
+    rec = _RECORDER
+    if rec is None:
+        return
+    cfg = arm.cfg
+    rec.ledger.record_round(
+        round=round, arm=arm.name, backend=backend, hospitals=arm.h,
+        cohort=cohort, delivered=delivered,
+        epsilon=arm.epsilon(), delta=cfg.dp.delta,
+        sampling_rate=getattr(arm, "rate", 0.0),
+        participation_rate=cfg.participation_rate,
+        noise_multiplier=cfg.dp.noise_multiplier,
+        bytes_up=bytes_up, topup=topup,
+    )
+
+
 # -- artifact export -----------------------------------------------------------
 
 EVENTS_FILE = "events.jsonl"
+LEDGER_FILE = "ledger.jsonl"
 TRACE_FILE = "trace.json"
 
 
 def export(out_dir: str | os.PathLike,
            rec: Recorder | None = None) -> dict[str, Path]:
-    """Write events.jsonl + trace.json into ``out_dir``.
+    """Write events.jsonl + ledger.jsonl + trace.json into ``out_dir``.
 
     Uses the active recorder when ``rec`` is not given; raises if neither
     exists (exporting nothing silently would hide a lost trace).
@@ -131,14 +162,18 @@ def export(out_dir: str | os.PathLike,
                            "recorder was passed")
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    paths = {"events": out / EVENTS_FILE, "trace": out / TRACE_FILE}
+    paths = {"events": out / EVENTS_FILE, "ledger": out / LEDGER_FILE,
+             "trace": out / TRACE_FILE}
     rec.write_jsonl(paths["events"])
+    rec.ledger.write_jsonl(paths["ledger"])
     write_chrome_trace(rec.events(), paths["trace"])
     return paths
 
 
 __all__ = [
     "EventStreamError",
+    "LedgerError",
+    "PrivacyLedger",
     "Recorder",
     "chrome_trace",
     "complete",
@@ -146,11 +181,15 @@ __all__ = [
     "disable",
     "enable",
     "export",
+    "ledger_round",
     "now",
+    "per_hospital_epsilon",
+    "read_entries",
     "read_events",
     "recorder",
     "recording",
     "span",
+    "validate_entries",
     "validate_events",
     "write_chrome_trace",
 ]

@@ -1,7 +1,8 @@
 """The structured tracing core: spans, counters, gauges, one Recorder.
 
 The port's own copy of ``repro.obs.recorder`` (stdlib only), without the
-privacy ledger and the ``jax.profiler`` bridge.
+``jax.profiler`` bridge.  The privacy ledger rides the recorder, as in the
+reference, so one ``enable()`` turns on spans and the ledger together.
 
 A ``Recorder`` is a process-wide, **thread-safe** event buffer.  Three
 typed event kinds, all host-side timestamps only (``time.perf_counter``
@@ -53,6 +54,9 @@ class Recorder:
         self._events: list[dict] = []
         self._counters: dict[str, float] = {}
         self._tls = threading.local()     # per-thread span stack (depth)
+        from repro_torch.obs.ledger import PrivacyLedger
+
+        self.ledger = PrivacyLedger()
 
     def now(self) -> float:
         """Seconds since the recorder's epoch (host clock, no device sync)."""
