@@ -9,9 +9,9 @@ standard library, and runs these phases in order; any failure raises and the
 script exits non-zero, printing no result:
 
   1. card    — the card's name and power limit from ``nvidia-smi``;
-  2. build   — ``nvcc`` builds every kernel of the serving and training
-     paths from ``src/repro_torch/csrc`` (one process per source, all at
-     once);
+  2. build   — ``nvcc`` builds every kernel of the serving, training and
+     evaluation paths from ``src/repro_torch/csrc`` (one process per
+     source, all at once);
   3. kernel vs plain — each kernel against its plain PyTorch version on
      the card, in bfloat16 and float32: ``decode_attention`` at the shapes
      of ``tests/test_kernels.py``, the serving shape and a long cache, with
@@ -19,7 +19,11 @@ script exits non-zero, printing no result:
      of ``tests/test_kernels.py`` and at the training shapes (B=16, S=256,
      every dense layer of SmolLM-360M and its head), also with a and g in
      different dtypes (bf16 and float32 either way round), as a round
-     meets once the parameters are float32;
+     meets once the parameters are float32; ``flash_attention`` at the
+     shapes of ``tests/test_kernels.py`` (MQA, a window, non-causal), an
+     L != S case and the evaluation shape (B=8, S=2048, 15 heads on 5),
+     at atol = rtol = 3e-5 in float32 and atol 1e-3 + rtol 1e-2 in
+     bfloat16 (a few output ulps: both sides compute in float32);
   4. serve main path — ``ServeEngine`` serves SmolLM-360M at full width in
      bfloat16 (seeded random weights) over a seeded open-loop trace; every
      request must complete, and the decode kernel's launch count must equal
@@ -36,10 +40,27 @@ script exits non-zero, printing no result:
   7. train whole path — one sigma = 0 round in float32 with the kernel and
      one with the plain ghost norm: the norms agree at rtol 1e-4 and the
      two rounds' updates (trained - initial parameters) within 1e-5 in L2;
-  8. times — each kernel, its plain version and one PyTorch library call
+  8. eval main path — with ``use_flash``, full-sequence ``forward``,
+     ``loss_fn`` and ``predict_fn`` of SmolLM-360M (untied head, full
+     width) under ``torch.no_grad()`` score 4 held-out ``token_silos``
+     hospitals x 2 sequences of 2048 tokens, once with seeded bf16 weights
+     and once with phase 6's trained float32 parameters: finite logits and
+     loss, exactly 32 ``flash_attention`` launches per forward, and
+     ``predict_fn`` the forward's argmax at the last position; prints the
+     pooled next-token accuracy and the mean cross-entropy;
+  9. eval whole path — at full width in float32, the forward with
+     ``use_flash`` (the kernel) against the model's plain ``_sdpa``:
+     logits within atol 1e-3, the same argmax wherever the top two differ
+     by more than 2e-3;
+ 10. blocked training — one sigma = 0 float32 ghost round at full width and
+     4 layers (B=4, S=1024: two KV blocks) with ``use_flash``
+     (``_sdpa_blocked``) against one without: updates within 1e-5 in L2,
+     and no ``flash_attention`` launch;
+ 11. times — each kernel, its plain version and one PyTorch library call
      (a yardstick the port never calls) on CUDA events, beside the least
-     time the card could take; a training round's wall time, and a
-     profiled round's device busy time and ``ghost_norm`` share.
+     time the card could take; a training round's wall time, a profiled
+     round's device busy time and ``ghost_norm`` share, and the wall time
+     of one evaluation forward.
 
 The next-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
@@ -67,7 +88,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch.arms as arms  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import param_count  # noqa: E402
+from repro_torch.configs.base import dense_stack, param_count  # noqa: E402
 from repro_torch.core import ghost as ghost_lib  # noqa: E402
 from repro_torch.core.accountant import RDPAccountant  # noqa: E402
 from repro_torch.core.dp import DPConfig  # noqa: E402
@@ -75,6 +96,8 @@ from repro_torch.instrument import jit_dispatches, reset_jit_dispatches  # noqa:
 from repro_torch.kernels import KERNEL_SOURCES, _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_plain  # noqa: E402
 from repro_torch.kernels.ghost_norm import ops as ghost_ops  # noqa: E402
 from repro_torch.kernels.ghost_norm.ops import ghost_norm_blocked  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -127,12 +150,43 @@ TRAIN = dict(hospitals=4, n_per=64, seq_len=256, rounds=3, batch_size=16,
              lr=0.05, clip=1.0, sigma=1.0)
 TRAIN_PARAMS = 408_944_640   # SmolLM-360M, untied head (param_count: no norms)
 
-# one entry per kernel on the serving and training paths
+# flash_attention (b, s, l, h, kv, d, causal, window): the shapes of
+# tests/test_kernels.py, keys longer than the queries, and the evaluation
+# shape (8 sequences of 2048 tokens through SmolLM-360M's 15 heads on 5)
+FLASH_CASES = [
+    (1, 128, 128, 4, 2, 32, True, None),
+    (2, 128, 128, 4, 4, 64, True, 32),
+    (1, 256, 256, 8, 2, 32, False, None),
+    (1, 128, 128, 2, 1, 128, True, None),
+    (2, 64, 192, 6, 2, 64, True, 48),
+    (8, 2048, 2048, 15, 5, 64, True, None),
+]
+# |kernel - plain| <= atol + rtol * |plain|, as (atol, rtol).  float32:
+# test_kernels.py's 3e-5.  bfloat16: both sides compute in float32 from the
+# same bf16 inputs and differ by the output's rounding (<= 1 ulp, 2^-8 of
+# |plain|), so rtol 1e-2 (2.5 ulps) and atol 1e-3, under the typical output
+# of ~0.03 on a long row; test_kernels.py's 3e-2 would pass a wrong tile.
+FLASH_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (1e-3, 1e-2)}
+EVAL_SHAPE = dict(b=8, s=2048, h=15, kv=5, d=64)
+
+# the evaluation: 4 held-out hospitals x 2 sequences of 2048 tokens (B=8),
+# scored with use_flash at full width
+EVAL = dict(hospitals=4, n_per=2, seq_len=2048, seed=1)
+# the blocked training round: full width, 4 layers, B=4 rows of S=1024
+# tokens, so _sdpa_blocked's 512-key blocks really are two
+BLOCKED = dict(n_layers=4, hospitals=2, n_per=8, seq_len=1024, batch_size=4)
+
+# one entry per kernel on the serving, training and evaluation paths
 KERNELS = [{
     "name": "decode_attention",
     "route": "cuda",
     "source": "src/repro_torch/csrc/decode_attention.cu",
     "replaces": "src/repro/kernels/decode_attention/kernel.py:68",
+}, {
+    "name": "flash_attention",
+    "route": "cuda",
+    "source": "src/repro_torch/csrc/flash_attention.cu",
+    "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
 }, {
     "name": "ghost_norm",
     "route": "cuda",
@@ -272,6 +326,46 @@ def ghost_vs_plain(dev) -> float:
                 raise AssertionError("ghost_norm disagrees with its plain "
                                      "version")
             worst = max(worst, float(err.max()))
+    return worst
+
+
+def _flash_inputs(b, s, l, h, kv, d, dtype, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (0.5 * torch.randn((b, s, h, d), generator=g, device=dev)).to(dtype)
+    k = (0.5 * torch.randn((b, l, kv, d), generator=g, device=dev)).to(dtype)
+    v = torch.randn((b, l, kv, d), generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+def flash_vs_plain(dev) -> float:
+    """flash_attention against attention_plain on every case in both
+    dtypes; returns the largest |kernel - plain|."""
+    worst = 0.0
+    for i, (b, s, l, h, kv, d, causal, window) in enumerate(FLASH_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _flash_inputs(b, s, l, h, kv, d, dtype, 300 + i, dev)
+            out = flash_ops.flash_attention(q, k, v, causal=causal,
+                                            window=window, block_q=64,
+                                            block_k=64)
+            ref = attention_plain(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or out.dtype != dtype:
+                raise AssertionError(f"kernel output {tuple(out.shape)} "
+                                     f"{out.dtype}, expected {tuple(ref.shape)}")
+            err = (out.float() - ref.float()).abs()
+            atol, rtol = FLASH_TOL[dtype]
+            ok = bool(torch.all(err <= atol + rtol * ref.float().abs()))
+            say(f"kernel vs plain: flash_attention B={b} S={s} L={l} H={h} "
+                f"KV={kv} D={d} causal={causal} window={window} "
+                f"{str(dtype)[6:]}: max|err| {float(err.max()):.3e} (atol "
+                f"{atol:g}, rtol {rtol:g}; mean|plain| "
+                f"{float(ref.float().abs().mean()):.3e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("flash_attention disagrees with its "
+                                     "plain version")
+            worst = max(worst, float(err.max()))
+            del q, k, v, out, ref, err
     return worst
 
 
@@ -472,6 +566,18 @@ def train_main_path(dev, smi) -> dict:
             "silos": silos, "params": report.params}
 
 
+def _update_l2(initial, a, b) -> tuple[float, float]:
+    """Two rounds' updates (trained - initial, over the whole tree) in
+    float64: L2 of their difference, and L2 of b's update."""
+    diff_sq = upd_sq = 0.0
+    for p0, pa, pb in zip(tree_leaves(initial), tree_leaves(a),
+                          tree_leaves(b)):
+        ua, ub = pa.double() - p0.double(), pb.double() - p0.double()
+        diff_sq += float((ua - ub).square().sum())
+        upd_sq += float(ub.square().sum())
+    return math.sqrt(diff_sq), math.sqrt(upd_sq)
+
+
 def train_whole_path(dev, silos) -> None:
     """One sigma = 0 round in float32 with the kernel and one with the plain
     ghost norm, from the same parameters.  The norms agree at rtol 1e-4.
@@ -508,13 +614,7 @@ def train_whole_path(dev, silos) -> None:
     nk, npl = norms[True], norms[False]
     norm_ok = bool(torch.all((nk - npl).abs() <= 1e-4 * npl.abs())) and \
         bool(torch.all(nk[4:] == 0))
-    diff_sq = upd_sq = 0.0
-    for p0, pk, pp in zip(tree_leaves(params), tree_leaves(trained[True]),
-                          tree_leaves(trained[False])):
-        uk, up = pk.double() - p0.double(), pp.double() - p0.double()
-        diff_sq += float((uk - up).square().sum())
-        upd_sq += float(up.square().sum())
-    diff, upd = math.sqrt(diff_sq), math.sqrt(upd_sq)
+    diff, upd = _update_l2(params, trained[True], trained[False])
     limit = 2 * TRAIN["lr"] * TRAIN["clip"] * 1e-4
     ok = norm_ok and diff <= limit and upd > 0
     say(f"train whole path: {ARCH} untied head, full width float32, sigma 0, "
@@ -528,7 +628,148 @@ def train_whole_path(dev, silos) -> None:
                              "disagree over a training round")
 
 
-# -- 7. times -------------------------------------------------------------------
+# -- 8. the evaluation main path ------------------------------------------------
+
+
+def _eval_batch(mcfg, dev) -> dict:
+    """The held-out silos as one batch: tokens [8, 2048] and labels."""
+    silos = token_silos(mcfg, **EVAL)
+    x = np.concatenate([p.x for p in silos])
+    y = np.concatenate([p.y for p in silos])
+    return {"tokens": torch.from_numpy(x).to(dev),
+            "labels": torch.from_numpy(y).to(dev)}
+
+
+def eval_main_path(dev, smi, trained) -> int:
+    """Score the held-out silos with use_flash at full width, under
+    ``torch.no_grad()``: seeded bf16 weights, then the trained float32
+    parameters (whose products promote q, k and v to float32).  Returns
+    the flash_attention launches of the run."""
+    mcfg = get_config(ARCH).replace(tie_embeddings=False, use_flash=True)
+    batch = _eval_batch(mcfg, dev)
+    model = transformer_model(mcfg, device=str(dev))
+    if trained["layers"]["wq"].dtype != torch.float32:
+        raise AssertionError("the trained parameters are not float32")
+    runs = {"seeded bfloat16": tf.init(mcfg, SEED, dev),
+            "trained float32": trained}
+    n = mcfg.n_layers
+    total = 0
+    for name, params in runs.items():
+        flash_ops.reset_launches()
+        with torch.no_grad():
+            logits, _ = tf.forward(mcfg, params, batch)
+            after_forward = flash_ops.launches()
+            loss = float(tf.loss_fn(mcfg, params, batch))
+            after_loss = flash_ops.launches()
+            pred = model.predict_fn(params, batch["tokens"])
+            launches = flash_ops.launches()
+        b, s = batch["tokens"].shape
+        if logits.shape != (b, s, mcfg.vocab_size):
+            raise AssertionError(f"logits {tuple(logits.shape)}")
+        if not (bool(torch.isfinite(logits).all()) and math.isfinite(loss)):
+            raise AssertionError(f"{name}: non-finite logits or loss")
+        if (after_forward, after_loss, launches) != (n, 2 * n, 3 * n):
+            raise AssertionError(
+                f"{name}: flash_attention launched {after_forward}, "
+                f"{after_loss}, {launches} times after forward, loss_fn and "
+                f"predict_fn; expected {n} per forward")
+        last = torch.argmax(logits[:, -1], dim=-1)
+        if not torch.equal(pred, last):
+            raise AssertionError(f"{name}: predict_fn {pred.tolist()} is not "
+                                 f"the forward's last argmax {last.tolist()}")
+        real = batch["labels"] >= 0      # as the "lm" scenarios' pooled_metric
+        acc = float((torch.argmax(logits, dim=-1)[real]
+                     == batch["labels"][real]).float().mean())
+        say(f"eval main path: {ARCH} untied head, full width, {name} "
+            f"weights, use_flash, {EVAL['hospitals']} held-out hospitals x "
+            f"{EVAL['n_per']} x {EVAL['seq_len']} tokens, on {smi}: "
+            f"logits {str(logits.dtype)[6:]} finite, mean cross-entropy "
+            f"{loss:.6f}, pooled next-token accuracy {acc:.6f}, predict_fn = "
+            f"last-position argmax, flash_attention launches {launches} "
+            f"({n} per forward: forward, loss_fn, predict_fn)")
+        total += launches
+        del logits, pred
+    return total
+
+
+# -- 9. the evaluation whole path, kernel against the model's plain attention ----
+
+
+def eval_whole_path(dev) -> None:
+    mcfg = get_config(ARCH).replace(tie_embeddings=False,
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+    params = tf.init(mcfg, SEED, dev)
+    batch = _eval_batch(mcfg, dev)
+    before = flash_ops.launches()
+    with torch.no_grad():
+        kernel, _ = tf.forward(mcfg.replace(use_flash=True), params, batch)
+        if flash_ops.launches() != before + mcfg.n_layers:
+            raise AssertionError("the use_flash forward did not launch the "
+                                 "kernel once per layer")
+        plain, _ = tf.forward(mcfg, params, batch)
+    err = float((kernel - plain).abs().max())
+    top2 = torch.topk(plain, 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2e-3
+    same = torch.argmax(kernel, dim=-1) == torch.argmax(plain, dim=-1)
+    ok = err <= 1e-3 and bool(same[sure].all()) and math.isfinite(err)
+    say(f"eval whole path: {ARCH} untied head, full width float32, B=8 S=2048,"
+        f" use_flash (kernel) vs plain _sdpa: logits max|kernel - plain| "
+        f"{err:.3e} (atol 1e-3); argmax identical at {int(same[sure].sum())} "
+        f"of {int(sure.sum())} positions whose top two differ by > 2e-3 "
+        f"({int(same.sum())} of {same.numel()} overall) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the flash kernel and the plain attention "
+                             "disagree over the evaluation forward")
+
+
+# -- 10. blocked training: _sdpa_blocked inside a ghost round ----------------------
+
+
+def blocked_train_path(dev) -> None:
+    """One sigma = 0 float32 ghost round with use_flash (the ghost forward's
+    attention is then _sdpa_blocked, two 512-key blocks at S = 1024) and
+    one without, from the same parameters: the updates agree within 1e-5
+    in L2 and the flash kernel never launches."""
+    base = get_config(ARCH).replace(
+        tie_embeddings=False, param_dtype="float32", compute_dtype="float32",
+        n_layers=BLOCKED["n_layers"], stack=dense_stack(BLOCKED["n_layers"]))
+    silos = token_silos(base, hospitals=BLOCKED["hospitals"],
+                        n_per=BLOCKED["n_per"], seq_len=BLOCKED["seq_len"],
+                        seed=SEED)
+    params = tf.init(base, SEED, dev)
+    cfg = arms.ArmConfig(rounds=1, batch_size=BLOCKED["batch_size"],
+                         lr=TRAIN["lr"], seed=SEED, use_secagg=False,
+                         dp=DPConfig(clip_norm=TRAIN["clip"],
+                                     noise_multiplier=0.0))
+    trained, launches = {}, {}
+    for flash in (True, False):
+        model = dataclasses.replace(
+            transformer_model(base.replace(use_flash=flash), device=str(dev)),
+            init_fn=lambda seed: params)
+        flash_ops.reset_launches()
+        report = arms.run("decaph", model, silos, cfg)
+        launches[flash] = flash_ops.launches()
+        if report.rounds_completed != 1 or not math.isfinite(
+                report.logs[0].loss):
+            raise AssertionError("the blocked ghost round did not complete")
+        trained[flash] = report.params
+    diff, upd = _update_l2(params, trained[True], trained[False])
+    ok = diff <= 1e-5 and upd > 0 and launches[True] == launches[False] == 0
+    say(f"blocked training: {ARCH} untied head, full width float32, "
+        f"{BLOCKED['n_layers']} layers, B={BLOCKED['batch_size']} S="
+        f"{BLOCKED['seq_len']}, sigma 0, one ghost round with use_flash "
+        f"(_sdpa_blocked, two 512-key blocks) vs plain _sdpa: update L2 "
+        f"{upd:.6e}, |blocked - plain| {diff:.3e} (limit 1e-5); "
+        f"flash_attention launches {launches[True]} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the blocked ghost round disagrees with the "
+                             "plain one, or launched the flash kernel")
+
+
+# -- 11. times -------------------------------------------------------------------
 
 
 @functools.cache
@@ -707,6 +948,84 @@ def time_ghost(dev, smi) -> dict:
             "per_participant": per_participant}
 
 
+def _library_flash(q, k, v):
+    # one PyTorch call for the same function: causal SDPA with the KV heads
+    # shared by their query groups (a yardstick only; the port never calls
+    # it)
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True).transpose(1, 2)
+
+
+def flash_bound_ms(q, k) -> tuple[float, str]:
+    """Least time for one causal call on these inputs: q, k, v and the
+    output each read or written once, over the HBM rate; against 4*D
+    operations per attended (query, key) pair — row i attends min(i+1, L)
+    keys, B*H*S*(S+1)/2 pairs at L = S — over the peak for the dtype."""
+    b, s, h, d = q.shape
+    l = k.shape[1]
+    pairs = b * h * int(torch.clamp(torch.arange(1, s + 1), max=l).sum())
+    es = q.element_size()
+    nbytes = 2 * q.numel() * es + 2 * k.numel() * es
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4 * d * pairs / PEAK_OPS_PER_S[q.dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def time_flash(dev, smi) -> dict:
+    """flash_attention, attention_plain and causal SDPA at the evaluation
+    shape in both dtypes; returns the bfloat16 times for the kernels line."""
+    b, s, h, kv, d = (EVAL_SHAPE[x] for x in ("b", "s", "h", "kv", "d"))
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        per_copy = (2 * b * s * h * d + 2 * b * s * kv * d) * (
+            2 if dtype == torch.bfloat16 else 4)
+        copies = max(2, math.ceil(2 * L2_BYTES / per_copy))
+        sets = [_flash_inputs(b, s, s, h, kv, d, dtype, 400 + c, dev)
+                for c in range(copies)]
+        q, k, v = sets[0]
+        lib_err = float((_library_flash(q, k, v).float()
+                         - attention_plain(q, k, v).float()).abs().max())
+        if not lib_err <= TOL[dtype]:
+            raise AssertionError(f"library call disagrees with the plain "
+                                 f"version by {lib_err:.3e}")
+        row = {"ms": device_ms(flash_ops.flash_attention, sets, 20),
+               "plain_ms": device_ms(attention_plain, sets, 6),
+               "library_ms": device_ms(_library_flash, sets, 20)}
+        row["bound_ms"], row["bound_by"] = flash_bound_ms(q, k)
+        say(f"times: flash_attention B={b} S=L={s} H={h} KV={kv} D={d} "
+            f"causal {str(dtype)[6:]}, {copies} rotating copies, on {smi}: "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"library (SDPA, is_causal, enable_gqa) {row['library_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of bound); "
+            f"{4 * d * b * h * s * (s + 1) // 2 / 1e9:.1f} GFLOP per call; "
+            f"32 per evaluation forward")
+        rows[dtype] = row
+        del sets, q, k, v
+    return rows[torch.bfloat16]
+
+
+def time_eval_forward(dev, smi) -> float:
+    """Host wall time of one full-width bf16 evaluation forward (B=8,
+    S=2048, use_flash, synchronised), median of 5 after a warm-up, and the
+    flash kernel's share at the times phase's median."""
+    mcfg = get_config(ARCH).replace(tie_embeddings=False, use_flash=True)
+    params = tf.init(mcfg, SEED, dev)
+    batch = _eval_batch(mcfg, dev)
+    walls = []
+    with torch.no_grad():
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tf.forward(mcfg, params, batch)
+            torch.cuda.synchronize()
+            if i:
+                walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
 def _self_device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         us = getattr(evt, name, None)
@@ -830,7 +1149,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build()
     worst = {"decode_attention": kernel_vs_plain(dev),
-             "ghost_norm": ghost_vs_plain(dev)}
+             "ghost_norm": ghost_vs_plain(dev),
+             "flash_attention": flash_vs_plain(dev)}
     engine, launches = main_path(dev, smi)
     time_decode_step(engine, smi)
     del engine
@@ -840,11 +1160,25 @@ def main() -> int:
     launches["ghost_norm"] = train["launches"]
     train_whole_path(dev, train["silos"])
     torch.cuda.empty_cache()
+    launches["flash_attention"] = eval_main_path(dev, smi, train["params"])
+    torch.cuda.empty_cache()
+    eval_whole_path(dev)
+    torch.cuda.empty_cache()
+    blocked_train_path(dev)
+    torch.cuda.empty_cache()
     times = {"decode_attention": time_decode(SERVE_SHAPE, dev, smi)}
     time_decode(LONG_SHAPE, dev, smi)
     ghost = time_ghost(dev, smi)
     times["ghost_norm"] = ghost["row"]
     profile_round(dev, smi, train, ghost)
+    torch.cuda.empty_cache()
+    times["flash_attention"] = time_flash(dev, smi)
+    wall_ms = time_eval_forward(dev, smi)
+    share = 32 * times["flash_attention"]["ms"] / wall_ms
+    say(f"eval forward: {ARCH} untied head full width bfloat16, use_flash, "
+        f"B=8 S=2048, on {smi}: wall {wall_ms:.2f} ms (median of 5); "
+        f"flash_attention at the times phase's median: 32 x "
+        f"{times['flash_attention']['ms']:.4f} ms = {100 * share:.1f}% of it")
     lines = [{**k, "launches": launches[k["name"]],
               "max_abs_err": worst[k["name"]], **times[k["name"]]}
              for k in KERNELS]

@@ -20,6 +20,9 @@ gradient.  Supported: dense decoder stacks with RMSNorm and standard RoPE
 an upper bound, which is why ``serve.federation.transformer_model``
 attaches the capability to untied models only).
 
+With ``cfg.use_flash`` the attention is ``_sdpa_blocked`` (the reference's
+choice too: its flash kernel has no backward), each KV block checkpointed.
+
 Differences from the reference: ``cfg.remat`` is not honoured (every
 activation is kept for the backward; the card's shapes fit without it),
 and the embedding norm groups repeated tokens by sorting and differencing
@@ -34,7 +37,12 @@ import torch
 from repro_torch.core.dp import clip_factor, ghost_norms_2d
 from repro_torch.kernels.ghost_norm.ops import ghost_norm
 from repro_torch.models import transformer as tf
-from repro_torch.models.attention import _causal_mask, _sdpa, rope
+from repro_torch.models.attention import (
+    _causal_mask,
+    _sdpa,
+    _sdpa_blocked,
+    rope,
+)
 from repro_torch.models.layers import _act, matmul
 from repro_torch.tree import Tree, tree_leaves, tree_map, tree_unflatten
 
@@ -186,8 +194,12 @@ def _attn_g(cfg, p, x, positions, coll, with_norms):
     v, coll = dp_dense(x, p["wv"], coll, with_norms)
     q, k = rope(q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd), positions,
                 cfg)
-    mask = _causal_mask(s, s, 0, cfg.sliding_window, x.device)
-    out = _sdpa(q, k, v.reshape(b, s, kv, hd), mask)
+    v = v.reshape(b, s, kv, hd)
+    if cfg.use_flash:   # never the flash kernel: it has no backward
+        out = _sdpa_blocked(q, k, v, causal=True, window=cfg.sliding_window)
+    else:
+        mask = _causal_mask(s, s, 0, cfg.sliding_window, x.device)
+        out = _sdpa(q, k, v, mask)
     return dp_dense(out.reshape(b, s, h * hd), p["wo"], coll, with_norms)
 
 
@@ -206,9 +218,6 @@ def forward_ghost(cfg, params: dict, batch: dict, coll: torch.Tensor, *,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Loss-identical ghost forward -> (per-example mean CE [B], coll)."""
     tf.check_supported(cfg)
-    if cfg.use_flash:
-        raise NotImplementedError("use_flash needs the flash_attention "
-                                  "kernel, which is not ported yet")
     x, coll = dp_embed(params["embed"], batch["tokens"].long(), coll)
     x = x.to(cfg.cdtype)
     b, s, _ = x.shape

@@ -2,4 +2,4 @@
 beside its plain PyTorch version.  ``_build`` compiles the sources with
 ``nvcc`` at first use."""
 
-KERNEL_SOURCES = ("decode_attention", "ghost_norm")
+KERNEL_SOURCES = ("decode_attention", "flash_attention", "ghost_norm")

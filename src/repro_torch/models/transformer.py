@@ -198,13 +198,14 @@ def decode_step(cfg, params: dict, cache: dict, tokens: torch.Tensor,
 
 def prefill(cfg, params: dict, cache: dict, tokens: torch.Tensor
             ) -> tuple[torch.Tensor, dict]:
-    """Prefill a prompt by decode-stepping every position in order, as the
-    reference's scan does.  ``tokens``: [B,S].  Returns the last position's
-    logits [B,1,V] and the cache filled through position S-1.
+    """Prefill a prompt by decode-stepping every position in order.
+    ``tokens``: [B,S].  Returns the last position's logits [B,1,V] and the
+    cache filled through position S-1.
 
-    Each position runs the decode kernel with the prompt's batch; a
-    batched full-sequence prefill needs attention over the whole prompt,
-    which is ``flash_attention``'s work and not ported yet.
+    The reference's ``prefill`` scans its decode step over the prompt on
+    purpose, so the port does the same: each position runs the decode
+    kernel with the prompt's batch.  Neither package has a batched
+    full-sequence prefill.
     """
     b, s = tokens.shape
     logits = torch.zeros((b, 1, cfg.vocab_size), dtype=cfg.cdtype,

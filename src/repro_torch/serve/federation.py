@@ -26,10 +26,14 @@ def transformer_model(model_cfg, *, device="cuda") -> Model:
     ``init_fn(seed)`` builds seeded parameters on ``device`` (CUDA unless
     the caller asks for the CPU).  ``loss_fn(params, ex)`` takes one
     example ``ex = {"x": [S] tokens, "y": [S] shifted labels (-1 =
-    masked)}``.  Dense decoder stacks with untied embeddings also declare
-    the ghost-clipping capability (DESIGN.md §12): DP arms then compute
-    their clipped gradient sums through ``core.ghost`` (the ``ghost_norm``
-    kernel on the card), one silo batch in one chunk.
+    masked)}``.  ``predict_fn(params, x)`` is the argmax at the last
+    position of a full-sequence forward, run under ``torch.no_grad()``;
+    with ``model_cfg.use_flash`` its causal attention runs the
+    ``flash_attention`` kernel on the card.  Dense decoder stacks with
+    untied embeddings also declare the ghost-clipping capability
+    (DESIGN.md §12): DP arms then compute their clipped gradient sums
+    through ``core.ghost`` (the ``ghost_norm`` kernel on the card), one
+    silo batch in one chunk.
     """
     tf.check_supported(model_cfg)
     dev = resolve_device(device)
@@ -41,6 +45,7 @@ def transformer_model(model_cfg, *, device="cuda") -> Model:
         return tf.loss_fn(model_cfg, params, {"tokens": ex["x"][None],
                                               "labels": ex["y"][None]})
 
+    @torch.no_grad()
     def predict_fn(params, x):
         logits, _ = tf.forward(model_cfg, params, {"tokens": x})
         return torch.argmax(logits[:, -1], dim=-1)

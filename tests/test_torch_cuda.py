@@ -8,6 +8,10 @@ with only PyTorch:
 
 Tolerances: ``decode_attention`` at ``tests/test_kernels.py``'s (3e-5
 float32, 3e-2 bfloat16) against its plain version on the same inputs;
+``flash_attention`` at 3e-5 in float32 and at atol 1e-3 + rtol 1e-2 in
+bfloat16 (both sides compute in float32 from the same inputs and differ by
+the output's rounding, a few ulps; 3e-2 is as large as a long row's
+typical output);
 ``ghost_norm`` at rtol 1e-5, with a and g in one dtype or in two (as a
 training round meets them) — the kernel and the plain version both sum in
 float32 over the same inputs, in other orders.
@@ -16,9 +20,14 @@ float32 over the same inputs, in other orders.
 import pytest
 import torch
 
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import attention_plain
 from repro_torch.kernels.ghost_norm import ops as ghost_ops
+from repro_torch.models import transformer as tf
+from repro_torch.serve.federation import transformer_model
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +96,89 @@ def test_decode_attention_kernel_matches_plain(dev, b, l, h, kv, d, window,
     tol = 3e-5 if dtype == "float32" else 3e-2
     torch.testing.assert_close(out.float(), decode_attention_plain(
         q, k, v, index, window=window).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,s,l,h,kv,d,causal,window", [
+    (1, 128, 128, 4, 2, 32, True, None),
+    (2, 128, 128, 4, 4, 64, True, 32),
+    (1, 256, 256, 8, 2, 32, False, None),
+    (1, 128, 128, 2, 1, 128, True, None),      # MQA
+    (2, 64, 192, 6, 2, 64, True, 48),          # L > S
+    (1, 192, 64, 4, 1, 32, False, 100),        # L < S: rows with no key
+    (2, 100, 100, 15, 5, 64, True, None),      # ragged tiles, SmolLM heads
+    (1, 64, 64, 16, 1, 64, True, None),        # group 16: split over blocks
+])
+def test_flash_attention_kernel_matches_plain(dev, b, s, l, h, kv, d, causal,
+                                              window, dtype):
+    g_ = torch.Generator(device=dev).manual_seed(s + l + d)
+    q = (0.5 * torch.randn((b, s, h, d), generator=g_, device=dev)).to(
+        DTYPES[dtype])
+    k = (0.5 * torch.randn((b, l, kv, d), generator=g_, device=dev)).to(
+        DTYPES[dtype])
+    v = torch.randn((b, l, kv, d), generator=g_, device=dev).to(DTYPES[dtype])
+    before = flash_ops.launches()
+    out = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                    block_q=s, block_k=l)
+    assert flash_ops.launches() == before + 1
+    atol, rtol = (3e-5, 3e-5) if dtype == "float32" else (1e-3, 1e-2)
+    torch.testing.assert_close(out.float(), attention_plain(
+        q, k, v, causal=causal, window=window).float(), rtol=rtol, atol=atol)
+    # the same inputs give the same output, bit for bit (no atomics)
+    assert torch.equal(out, flash_ops.flash_attention(
+        q, k, v, causal=causal, window=window, block_q=s, block_k=l))
+
+
+def test_flash_attention_kernel_refuses_to_be_differentiated(dev):
+    q, k, v = (torch.randn((1, 64, 2, 32), device=dev) for _ in range(3))
+    q.requires_grad_()
+    before = flash_ops.launches()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_ops.flash_attention(q, k, v)
+    assert flash_ops.launches() == before
+    with torch.no_grad():
+        flash_ops.flash_attention(q, k, v)
+    assert flash_ops.launches() == before + 1
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_use_flash_forward_launches_once_per_layer(dev, dtype):
+    """SmolLM-360M at full width: one kernel launch per layer (32) per
+    forward; in float32, the logits of the model's plain attention within
+    1e-3 (the whole-path tolerance of ``chip_smoke.py``)."""
+    cfg = get_config("smollm-360m").replace(
+        use_flash=True, param_dtype=dtype, compute_dtype=dtype)
+    params = tf.init(cfg, 0, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    flash_ops.reset_launches()
+    with torch.no_grad():
+        logits, _ = tf.forward(cfg, params, {"tokens": tokens})
+    assert flash_ops.launches() == cfg.n_layers == 32
+    assert logits.dtype == DTYPES[dtype]
+    assert bool(torch.isfinite(logits).all())
+    if dtype == "float32":
+        with torch.no_grad():
+            plain, _ = tf.forward(cfg.replace(use_flash=False), params,
+                                  {"tokens": tokens})
+        torch.testing.assert_close(logits, plain, rtol=0, atol=1e-3)
+
+
+def test_predict_fn_runs_the_kernel_with_grad_mode_on(dev):
+    """``predict_fn`` is an argmax that nothing differentiates: it runs the
+    kernel even where grad mode is on and the parameters require grad."""
+    cfg = get_smoke_config("smollm-360m").replace(use_flash=True,
+                                                  tie_embeddings=False)
+    params = tf.init(cfg, 0, dev)
+    for t in [params["embed"], params["final_norm"], params["head"],
+              *params["layers"].values()]:
+        t.requires_grad_()
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    flash_ops.reset_launches()
+    assert torch.is_grad_enabled()
+    pred = transformer_model(cfg, device=str(dev)).predict_fn(params, tokens)
+    assert flash_ops.launches() == cfg.n_layers
+    with torch.no_grad():
+        logits, _ = tf.forward(cfg, params, {"tokens": tokens})
+    assert torch.equal(pred, torch.argmax(logits[:, -1], dim=-1))

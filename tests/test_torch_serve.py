@@ -245,6 +245,7 @@ def test_port_imports_no_jax_and_no_reference_module():
         "import repro_torch.kernels.decode_attention.ops\n"
         "import repro_torch.arms, repro_torch.core.ghost, repro_torch.core.dp\n"
         "import repro_torch.kernels.ghost_norm, repro_torch.serve.federation\n"
+        "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.core.accountant, repro_torch.obs.ledger\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "print(bad)\n"
