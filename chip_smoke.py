@@ -11,19 +11,29 @@ script exits non-zero, printing no result:
   1. card    — the card's name and power limit from ``nvidia-smi``;
   2. build   — ``nvcc`` builds every kernel of the serving, training and
      evaluation paths from ``src/repro_torch/csrc`` (one process per
-     source, all at once);
+     source, all at once) and prints each kernel's registers, static
+     shared memory and spills as ``ptxas -v`` reported them, and the HMMA
+     (tensor-core) instructions of each flash kernel where ``cuobjdump``
+     exists (the bf16 kernels must have some);
   3. kernel vs plain — each kernel against its plain PyTorch version on
-     the card, in bfloat16 and float32: ``decode_attention`` at the shapes
-     of ``tests/test_kernels.py``, the serving shape and a long cache, with
-     per-row indices that include 0 and L-1; ``ghost_norm`` at the shapes
-     of ``tests/test_kernels.py`` and at the training shapes (B=16, S=256,
+     the card, in bfloat16 and float32, and against a second launch on the
+     same inputs bit for bit: ``decode_attention`` at the shapes of
+     ``tests/test_kernels.py``, the serving shape and a long cache, with
+     per-row indices that include 0 and L-1, and at the edges of its split
+     kernel's chunks (index 0, one below, at and one above a chunk
+     boundary, a window across two chunks, L not a multiple of the chunk,
+     rows of one batch far apart), at 1e-4 in float32 and atol 1e-3 +
+     rtol 1e-2 in bfloat16; ``ghost_norm`` at the shapes of
+     ``tests/test_kernels.py`` and at the training shapes (B=16, S=256,
      every dense layer of SmolLM-360M and its head), also with a and g in
      different dtypes (bf16 and float32 either way round), as a round
      meets once the parameters are float32; ``flash_attention`` at the
-     shapes of ``tests/test_kernels.py`` (MQA, a window, non-causal), an
-     L != S case and the evaluation shape (B=8, S=2048, 15 heads on 5),
-     at atol = rtol = 3e-5 in float32 and atol 1e-3 + rtol 1e-2 in
-     bfloat16 (a few output ulps: both sides compute in float32);
+     shapes of ``tests/test_kernels.py`` (MQA, a window, non-causal), L != S,
+     the evaluation shape (B=8, S=2048, 15 heads on 5) and the edges of its
+     tiles (ragged S and L, windows of 1, one key tile and three, groups of
+     1, 4 and 5, rows that see no key, D = 32 and 128), at atol = rtol =
+     3e-5 in float32 and atol 1e-3 + rtol 1e-2 in bfloat16 (a few output
+     ulps), each dtype through its own kernel (tensor cores for bf16);
   4. serve main path — ``ServeEngine`` serves SmolLM-360M at full width in
      bfloat16 (seeded random weights) over a seeded open-loop trace; every
      request must complete, and the decode kernel's launch count must equal
@@ -45,13 +55,16 @@ script exits non-zero, printing no result:
      width) under ``torch.no_grad()`` score 4 held-out ``token_silos``
      hospitals x 2 sequences of 2048 tokens, once with seeded bf16 weights
      and once with phase 6's trained float32 parameters: finite logits and
-     loss, exactly 32 ``flash_attention`` launches per forward, and
+     loss, exactly 32 ``flash_attention`` launches per forward, all of the
+     dtype's kernel (tensor-core bf16, CUDA-core float32), and
      ``predict_fn`` the forward's argmax at the last position; prints the
      pooled next-token accuracy and the mean cross-entropy;
   9. eval whole path — at full width in float32, the forward with
      ``use_flash`` (the kernel) against the model's plain ``_sdpa``:
      logits within atol 1e-3, the same argmax wherever the top two differ
-     by more than 2e-3;
+     by more than 2e-3; then the bf16 forward once, with each of the 32
+     layers' kernel output held against ``attention_plain`` on that layer's
+     own q, k and v at the bf16 limit of phase 3;
  10. blocked training — one sigma = 0 float32 ghost round at full width and
      4 layers (B=4, S=1024: two KV blocks) with ``use_flash``
      (``_sdpa_blocked``) against one without: updates within 1e-5 in L2,
@@ -59,8 +72,10 @@ script exits non-zero, printing no result:
  11. times — each kernel, its plain version and one PyTorch library call
      (a yardstick the port never calls) on CUDA events, beside the least
      time the card could take; a training round's wall time, a profiled
-     round's device busy time and ``ghost_norm`` share, and the wall time
-     of one evaluation forward.
+     round's device busy time and ``ghost_norm`` share, the wall time of
+     one evaluation forward and the flash kernel's share of it, and a
+     profiled evaluation forward's device busy time, idle share and top
+     device ops.
 
 The next-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
@@ -72,6 +87,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -100,6 +116,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_plain  # noqa: E402
 from repro_torch.kernels.ghost_norm import ops as ghost_ops  # noqa: E402
 from repro_torch.kernels.ghost_norm.ops import ghost_norm_blocked  # noqa: E402
+from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve.federation import token_silos, transformer_model  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -113,11 +130,22 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 L2_BYTES = 50 * 2**20
+# a library call against the plain version, before it is timed as a
+# yardstick (SDPA may round P to bf16, so bf16 gets test_kernels.py's 3e-2)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# decode kernel against its plain version, |err| <= atol + rtol |plain|.
+# bfloat16: both sides accumulate in float32 from the same bf16 inputs and
+# differ by the output's rounding (<= 1 ulp, 2^-8 of |plain|), as in
+# FLASH_TOL; an absolute 3e-2 is as large as the typical output (~0.03 on
+# a long cache) and would pass a wrong tile
+DECODE_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-3, 1e-2)}
 
 # the serving shape: 8 slots of SmolLM-360M (15 query heads on 5 KV heads of
 # 64) with 512 cache rows each, and the same at a long cache
 SERVE_SHAPE = dict(b=8, l=512, h=15, kv=5, d=64)
+# where the serve main path's positions are (prompts and outputs of a few
+# dozen tokens); the decode step is timed there too
+SERVE_POSITION = 64
 LONG_SHAPE = dict(b=8, l=4096, h=15, kv=5, d=64)
 
 # (b, l, h, kv, d, index, window): the decode shapes of tests/test_kernels.py,
@@ -151,8 +179,12 @@ TRAIN = dict(hospitals=4, n_per=64, seq_len=256, rounds=3, batch_size=16,
 TRAIN_PARAMS = 408_944_640   # SmolLM-360M, untied head (param_count: no norms)
 
 # flash_attention (b, s, l, h, kv, d, causal, window): the shapes of
-# tests/test_kernels.py, keys longer than the queries, and the evaluation
-# shape (8 sequences of 2048 tokens through SmolLM-360M's 15 heads on 5)
+# tests/test_kernels.py, keys longer than the queries, the evaluation shape
+# (8 sequences of 2048 tokens through SmolLM-360M's 15 heads on 5), then the
+# edges of the kernels' tiles (64 query rows; 64 keys in bf16, 32 in
+# float32): ragged S and L, windows of 1, of one key tile and across three,
+# groups of 1, 4 and 5, and L < S with a window, where late rows see no key
+# and come out 0 (with L > S every row i sees key i)
 FLASH_CASES = [
     (1, 128, 128, 4, 2, 32, True, None),
     (2, 128, 128, 4, 4, 64, True, 32),
@@ -160,12 +192,25 @@ FLASH_CASES = [
     (1, 128, 128, 2, 1, 128, True, None),
     (2, 64, 192, 6, 2, 64, True, 48),
     (8, 2048, 2048, 15, 5, 64, True, None),
+    (2, 96, 96, 15, 5, 64, True, None),
+    (1, 200, 200, 15, 5, 64, True, None),
+    (1, 200, 200, 15, 5, 64, True, 1),
+    (2, 256, 256, 4, 4, 64, True, 64),
+    (1, 320, 320, 8, 2, 64, True, 150),
+    (1, 128, 128, 5, 1, 32, True, None),
+    (1, 128, 320, 8, 2, 64, True, 100),
+    (1, 200, 72, 15, 5, 64, True, 40),
+    (1, 96, 160, 4, 1, 64, False, 50),
+    (1, 200, 200, 4, 2, 32, True, 70),
+    (2, 200, 200, 8, 2, 128, True, None),
 ]
 # |kernel - plain| <= atol + rtol * |plain|, as (atol, rtol).  float32:
-# test_kernels.py's 3e-5.  bfloat16: both sides compute in float32 from the
-# same bf16 inputs and differ by the output's rounding (<= 1 ulp, 2^-8 of
-# |plain|), so rtol 1e-2 (2.5 ulps) and atol 1e-3, under the typical output
-# of ~0.03 on a long row; test_kernels.py's 3e-2 would pass a wrong tile.
+# test_kernels.py's 3e-5.  bfloat16: both sides accumulate in float32 from
+# the same bf16 inputs (the kernel on tensor cores, with P in two bf16 terms,
+# about 2^-17 of each probability) and differ by the output's rounding
+# (<= 1 ulp, 2^-8 of |plain|), so rtol 1e-2 (2.5 ulps) and atol 1e-3, under
+# the typical output of ~0.03 on a long row; test_kernels.py's 3e-2 would
+# pass a wrong tile.
 FLASH_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (1e-3, 1e-2)}
 EVAL_SHAPE = dict(b=8, s=2048, h=15, kv=5, d=64)
 
@@ -218,11 +263,38 @@ def card() -> str:
 # -- 2. build -------------------------------------------------------------------
 
 
+def _short(kernel: str) -> str:
+    """A demangled kernel name without its anonymous namespace, the casts
+    of its template arguments, its return type and its parameters."""
+    name = re.sub(r"\(anonymous namespace\)::|<unnamed>::|\((?:unsigned )?int\)",
+                  "", kernel)
+    return name.split("(", 1)[0].removeprefix("void ")
+
+
 def build() -> None:
+    """Build every source; print each kernel's registers, static shared
+    memory and spills as ptxas reported them, and the flash library's
+    tensor-core (HMMA) instructions per kernel."""
     spent = _build.build(KERNEL_SOURCES)
     say(f"build: {', '.join(f'{n}.cu' for n in KERNEL_SOURCES)} -> "
         f"{', '.join(_build.library_path(n).name for n in KERNEL_SOURCES)} "
         f"in {spent:.2f} s")
+    for name in KERNEL_SOURCES:
+        for r in _build.resources(name):
+            say(f"resources: {name}.cu {_short(r['kernel'])}: "
+                f"{r['registers']} registers, {r['smem']} B static shared "
+                f"memory, {r['stack']} B stack, spills {r['spill_stores']} B "
+                f"stored / {r['spill_loads']} B loaded")
+    hmma = _build.sass_counts("flash_attention", "HMMA")
+    if hmma is None:
+        say("sass: no cuobjdump on this machine; HMMA not counted")
+        return
+    say("sass: HMMA instructions in flash_attention.cu: " +
+        ", ".join(f"{_short(k)} {n}" for k, n in hmma.items()))
+    mma = [n for k, n in hmma.items() if "mma_kernel" in k]
+    if len(mma) != len(flash_ops.HEAD_DIMS) or min(mma) < 1:
+        raise AssertionError("the bf16 flash kernel has no tensor-core "
+                             "instructions")
 
 
 # -- 3. kernel against its plain version ----------------------------------------
@@ -257,22 +329,62 @@ def kernel_vs_plain(dev) -> float:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, idx = _decode_inputs(len(rows), l, h, kv, d, dtype, rows,
                                           seed=i, dev=dev)
-            out = decode_ops.decode_attention(q, k, v, idx, window=window)
-            ref = decode_attention_plain(q, k, v, idx, window=window)
-            torch.cuda.synchronize()
-            if out.shape != ref.shape or out.dtype != dtype:
-                raise AssertionError(f"kernel output {tuple(out.shape)} "
-                                     f"{out.dtype}, expected {tuple(ref.shape)}")
-            err = float((out.float() - ref.float()).abs().max())
-            ok = math.isfinite(err) and err <= TOL[dtype]
-            say(f"kernel vs plain: B={len(rows)} L={l} H={h} KV={kv} D={d} "
-                f"window={window} {str(dtype)[6:]}: max|err| {err:.3e} "
-                f"(tol {TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError("decode_attention disagrees with its "
-                                     "plain version")
-            worst = max(worst, err)
+            worst = max(worst, _decode_check(q, k, v, idx, window, ""))
+    for i, (rows, l, h, kv, d, window, what) in enumerate(
+            _decode_split_cases(dev)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, idx = _decode_inputs(len(rows), l, h, kv, d, dtype, rows,
+                                          seed=50 + i, dev=dev)
+            worst = max(worst, _decode_check(q, k, v, idx, window, what))
     return worst
+
+
+def _decode_split_cases(dev) -> list:
+    """(rows, l, h, kv, d, window, what): the split kernel's edges, with c
+    the chunk ``split_plan`` gives the case's shapes."""
+    cases = []
+    for l, h, kv, d in [(512, 15, 5, 64), (1000, 15, 5, 64),
+                        (1000, 8, 1, 128), (300, 4, 2, 32)]:
+        n, c = decode_ops.split_plan(8, l, kv, decode_ops.sm_count(dev))
+        cases += [
+            ([0] * 8, l, h, kv, d, None, "index 0"),
+            ([c - 1, c, c + 1, 2 * c - 1, 2 * c, 2 * c + 1, l - 2, l - 1], l,
+             h, kv, d, None, f"around the split boundaries (chunk {c})"),
+            ([c + c // 2] * 4 + [c + 1] * 4, l, h, kv, d, c,
+             f"a window of {c} across two splits"),
+            ([0, 1, c, l // 2, l - c - 1, l - 3, l - 2, l - 1], l, h, kv, d,
+             None, f"rows far apart, {n} splits of {c} over L={l}"),
+        ]
+    return cases
+
+
+def _decode_check(q, k, v, idx, window, what) -> float:
+    """The kernel against the plain version at DECODE_TOL, and against a
+    second launch bit for bit; returns the largest |kernel - plain|."""
+    out = decode_ops.decode_attention(q, k, v, idx, window=window)
+    again = decode_ops.decode_attention(q, k, v, idx, window=window)
+    ref = decode_attention_plain(q, k, v, idx, window=window)
+    torch.cuda.synchronize()
+    b, l, kv, d = k.shape
+    dtype = q.dtype
+    if out.shape != ref.shape or out.dtype != dtype:
+        raise AssertionError(f"kernel output {tuple(out.shape)} "
+                             f"{out.dtype}, expected {tuple(ref.shape)}")
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    same = torch.equal(out, again)
+    atol, rtol = DECODE_TOL[dtype]
+    ok = (math.isfinite(err) and same
+          and bool(torch.all(diff <= atol + rtol * ref.float().abs())))
+    say(f"kernel vs plain: B={b} L={l} H={q.shape[2]} KV={kv} D={d} "
+        f"window={window} {str(dtype)[6:]}{', ' + what if what else ''}: "
+        f"max|err| {err:.3e} (atol {atol:g}, rtol {rtol:g}; mean|plain| "
+        f"{float(ref.float().abs().mean()):.3e}); repeat "
+        f"{'bit-identical' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("decode_attention disagrees with its plain "
+                             "version, or with itself")
+    return err
 
 
 def _ghost_inputs(b, s, d_in, d_out, dtype, seed, dev, *, unit=False,
@@ -344,9 +456,16 @@ def flash_vs_plain(dev) -> float:
     for i, (b, s, l, h, kv, d, causal, window) in enumerate(FLASH_CASES):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = _flash_inputs(b, s, l, h, kv, d, dtype, 300 + i, dev)
+            variant = flash_ops.VARIANTS[dtype]
+            before = flash_ops.launches(variant)
+            # blocks of the whole sequence: the reference's contract takes
+            # any S and L that way
             out = flash_ops.flash_attention(q, k, v, causal=causal,
-                                            window=window, block_q=64,
-                                            block_k=64)
+                                            window=window, block_q=s,
+                                            block_k=l)
+            again = flash_ops.flash_attention(q, k, v, causal=causal,
+                                              window=window, block_q=s,
+                                              block_k=l)
             ref = attention_plain(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             if out.shape != ref.shape or out.dtype != dtype:
@@ -355,17 +474,21 @@ def flash_vs_plain(dev) -> float:
             err = (out.float() - ref.float()).abs()
             atol, rtol = FLASH_TOL[dtype]
             ok = bool(torch.all(err <= atol + rtol * ref.float().abs()))
+            same = torch.equal(out, again)
+            ran = flash_ops.launches(variant) - before == 2
             say(f"kernel vs plain: flash_attention B={b} S={s} L={l} H={h} "
                 f"KV={kv} D={d} causal={causal} window={window} "
-                f"{str(dtype)[6:]}: max|err| {float(err.max()):.3e} (atol "
-                f"{atol:g}, rtol {rtol:g}; mean|plain| "
-                f"{float(ref.float().abs().mean()):.3e}) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
+                f"{str(dtype)[6:]} ({variant}): max|err| "
+                f"{float(err.max()):.3e} (atol {atol:g}, rtol {rtol:g}; "
+                f"mean|plain| {float(ref.float().abs().mean()):.3e}); "
+                f"repeat {'bit-identical' if same else 'DIFFERS'} "
+                f"{'ok' if ok and same and ran else 'FAIL'}")
+            if not (ok and same and ran):
                 raise AssertionError("flash_attention disagrees with its "
-                                     "plain version")
+                                     "plain version, or with itself, or "
+                                     "did not run its dtype's kernel")
             worst = max(worst, float(err.max()))
-            del q, k, v, out, ref, err
+            del q, k, v, out, again, ref, err
     return worst
 
 
@@ -650,11 +773,13 @@ def eval_main_path(dev, smi, trained) -> int:
     model = transformer_model(mcfg, device=str(dev))
     if trained["layers"]["wq"].dtype != torch.float32:
         raise AssertionError("the trained parameters are not float32")
-    runs = {"seeded bfloat16": tf.init(mcfg, SEED, dev),
-            "trained float32": trained}
+    # each run's q, k and v are in its weights' dtype, so it must go
+    # through that dtype's kernel only
+    runs = {"seeded bfloat16": (tf.init(mcfg, SEED, dev), "mma_bf16"),
+            "trained float32": (trained, "simt_fp32")}
     n = mcfg.n_layers
     total = 0
-    for name, params in runs.items():
+    for name, (params, variant) in runs.items():
         flash_ops.reset_launches()
         with torch.no_grad():
             logits, _ = tf.forward(mcfg, params, batch)
@@ -668,11 +793,13 @@ def eval_main_path(dev, smi, trained) -> int:
             raise AssertionError(f"logits {tuple(logits.shape)}")
         if not (bool(torch.isfinite(logits).all()) and math.isfinite(loss)):
             raise AssertionError(f"{name}: non-finite logits or loss")
-        if (after_forward, after_loss, launches) != (n, 2 * n, 3 * n):
+        if (after_forward, after_loss, launches) != (n, 2 * n, 3 * n) or \
+                flash_ops.launches(variant) != launches:
             raise AssertionError(
                 f"{name}: flash_attention launched {after_forward}, "
                 f"{after_loss}, {launches} times after forward, loss_fn and "
-                f"predict_fn; expected {n} per forward")
+                f"predict_fn ({flash_ops.launches(variant)} of them "
+                f"{variant}); expected {n} per forward, all {variant}")
         last = torch.argmax(logits[:, -1], dim=-1)
         if not torch.equal(pred, last):
             raise AssertionError(f"{name}: predict_fn {pred.tolist()} is not "
@@ -686,7 +813,8 @@ def eval_main_path(dev, smi, trained) -> int:
             f"logits {str(logits.dtype)[6:]} finite, mean cross-entropy "
             f"{loss:.6f}, pooled next-token accuracy {acc:.6f}, predict_fn = "
             f"last-position argmax, flash_attention launches {launches} "
-            f"({n} per forward: forward, loss_fn, predict_fn)")
+            f"({n} per forward: forward, loss_fn, predict_fn), all of the "
+            f"{variant} kernel")
         total += launches
         del logits, pred
     return total
@@ -722,6 +850,56 @@ def eval_whole_path(dev) -> None:
     if not ok:
         raise AssertionError("the flash kernel and the plain attention "
                              "disagree over the evaluation forward")
+
+
+def eval_layers_bf16(dev) -> float:
+    """The bf16 evaluation forward with the kernel once, every layer's q, k,
+    v and attention output captured where ``gqa_apply`` calls the kernel,
+    and each layer's output held against ``attention_plain`` on that
+    layer's own inputs at FLASH_TOL[bf16]: the kernel on real activations,
+    not only on random normals.  Returns the largest |kernel - plain|."""
+    mcfg = get_config(ARCH).replace(tie_embeddings=False, use_flash=True)
+    params = tf.init(mcfg, SEED, dev)
+    batch = _eval_batch(mcfg, dev)
+    kernel = attn_lib.flash_attention
+    seen = []
+
+    def capture(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        seen.append((q, k, v, kw, out))
+        return out
+
+    before = flash_ops.launches("mma_bf16")
+    with mock.patch.object(attn_lib, "flash_attention", capture), \
+            torch.no_grad():
+        logits, _ = tf.forward(mcfg, params, batch)
+    if len(seen) != mcfg.n_layers or \
+            flash_ops.launches("mma_bf16") != before + mcfg.n_layers:
+        raise AssertionError(f"{len(seen)} attention calls, expected "
+                             f"{mcfg.n_layers} through the bf16 kernel")
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    errs, worst_rel, bad = [], 0.0, []
+    for i, (q, k, v, kw, out) in enumerate(seen):
+        ref = attention_plain(q, k, v, **kw).float()
+        err = (out.float() - ref).abs()
+        errs.append(float(err.max()))
+        worst_rel = max(worst_rel,
+                        float((err / (atol + rtol * ref.abs())).max()))
+        if not bool(torch.all(err <= atol + rtol * ref.abs())):
+            bad.append(i)
+        del ref, err
+    seen.clear()
+    ok = not bad and bool(torch.isfinite(logits).all())
+    say(f"eval whole path: {ARCH} untied head, full width bfloat16, B=8 "
+        f"S=2048, use_flash, each layer's kernel output vs attention_plain "
+        f"on its own q, k, v: max|err| per layer "
+        f"{[float(f'{e:.3e}') for e in errs]} (atol {atol:g}, rtol {rtol:g};"
+        f" worst err / limit {worst_rel:.3f}) at {mcfg.n_layers - len(bad)} "
+        f"of {mcfg.n_layers} layers {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the bf16 flash kernel disagrees with its plain "
+                             f"version on real activations at layers {bad}")
+    return max(errs)
 
 
 # -- 10. blocked training: _sdpa_blocked inside a ghost round ----------------------
@@ -846,12 +1024,15 @@ def decode_bound_ms(q, k, index) -> tuple[float, str]:
         "operations"
 
 
-def time_decode(shape, dev, smi) -> dict:
+def time_decode(shape, dev, smi, position: int | None = None) -> dict:
+    """Times at every row's index ``position`` (default L-1, a full cache
+    of L rows)."""
     b, l, h, kv, d = (shape[x] for x in ("b", "l", "h", "kv", "d"))
     dtype = torch.bfloat16
     per_copy = 2 * b * l * kv * d * 2
     copies = max(2, math.ceil(2 * L2_BYTES / per_copy))
-    rows = [l - 1] * b              # decode at a full cache of L rows
+    position = l - 1 if position is None else position
+    rows = [position] * b
     sets = [_decode_inputs(b, l, h, kv, d, dtype, rows, seed=100 + i, dev=dev)
             for i in range(copies)]
     kj = torch.arange(l, device=dev)
@@ -872,7 +1053,7 @@ def time_decode(shape, dev, smi) -> dict:
     library_ms = device_ms(_library_decode, lib_sets, reps)
     bound_ms, bound_by = decode_bound_ms(q, k, idx)
     say(f"times: decode_attention B={b} L={l} H={h} KV={kv} D={d} bfloat16, "
-        f"every row at index {l - 1}, {copies} rotating copies, median of "
+        f"every row at index {position}, {copies} rotating copies, median of "
         f"{reps}, on {smi}: kernel {kernel_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library (SDPA, enable_gqa) {library_ms:.4f} ms,"
         f" bound {bound_ms:.4f} ms ({bound_by}; "
@@ -1007,10 +1188,40 @@ def time_flash(dev, smi) -> dict:
     return rows[torch.bfloat16]
 
 
-def time_eval_forward(dev, smi) -> float:
+def _self_device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        us = getattr(evt, name, None)
+        if us is not None:
+            return float(us)
+    return 0.0
+
+
+def _device_profile(fn) -> tuple[float, dict, float]:
+    """``fn()`` once under ``torch.profiler``: the device's busy time (the
+    sum of every kernel's self device time) in us, that time by kernel
+    name, and the host wall time of the profiled call in ms."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel: dict[str, float] = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + _self_device_us(evt)
+    return sum(by_kernel.values()), by_kernel, prof_ms
+
+
+def time_eval_forward(dev, smi, flash_ms: float) -> float:
     """Host wall time of one full-width bf16 evaluation forward (B=8,
-    S=2048, use_flash, synchronised), median of 5 after a warm-up, and the
-    flash kernel's share at the times phase's median."""
+    S=2048, use_flash, synchronised), median of 5 after a warm-up; the
+    flash kernel's share of it at the times phase's median; then one more
+    forward under ``torch.profiler``: the device's busy time, its idle
+    share of the unprofiled wall time, and the device ops that take the
+    most self time, with their shares of busy time."""
     mcfg = get_config(ARCH).replace(tie_embeddings=False, use_flash=True)
     params = tf.init(mcfg, SEED, dev)
     batch = _eval_batch(mcfg, dev)
@@ -1023,15 +1234,28 @@ def time_eval_forward(dev, smi) -> float:
             torch.cuda.synchronize()
             if i:
                 walls.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(walls)
-
-
-def _self_device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        us = getattr(evt, name, None)
-        if us is not None:
-            return float(us)
-    return 0.0
+        wall_ms = statistics.median(walls)
+        share = mcfg.n_layers * flash_ms / wall_ms
+        say(f"eval forward: {ARCH} untied head full width bfloat16, use_flash,"
+            f" B=8 S=2048, on {smi}: wall {wall_ms:.2f} ms (median of 5); "
+            f"flash_attention at the times phase's median: {mcfg.n_layers} x "
+            f"{flash_ms:.4f} ms = {100 * share:.1f}% of it")
+        busy_us, by_kernel, prof_ms = _device_profile(
+            lambda: tf.forward(mcfg, params, batch))
+    if busy_us <= 0:
+        say("eval forward profile: torch.profiler recorded no device time on"
+            " this machine, so device busy and idle share are not measured")
+        return wall_ms
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    say(f"eval forward profile: bfloat16, on {smi}: wall {wall_ms:.2f} ms "
+        f"({prof_ms:.1f} ms with the profiler on), device busy "
+        f"{busy_us / 1e3:.2f} ms, device idle "
+        f"{100 * (1 - busy_us / 1e3 / wall_ms):.1f}% of the forward; top "
+        f"device ops by self time: " + "; ".join(
+            f"{_short(name)[:90]} {us / 1e3:.2f} ms "
+            f"({100 * us / busy_us:.1f}%)"
+            for name, us in top))
+    return wall_ms
 
 
 def profile_round(dev, smi, train, ghost) -> None:
@@ -1057,21 +1281,10 @@ def profile_round(dev, smi, train, ghost) -> None:
     arms.LocalRunner().run(arm)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        arms.LocalRunner().run(arm_again)
-        torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) * 1e3
-    busy_us = ghost_us = 0.0
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = _self_device_us(evt)
-        busy_us += us
-        if "ghost_norm" in evt.key:
-            ghost_us += us
+    busy_us, by_kernel, prof_ms = _device_profile(
+        lambda: arms.LocalRunner().run(arm_again))
+    ghost_us = sum(us for name, us in by_kernel.items()
+                   if "ghost_norm" in name)
     round_s = train["round_s"]
     est = {dt: TRAIN["hospitals"] * ghost["per_participant"][dt]["ms"]
            for dt in (torch.bfloat16, torch.float32)}
@@ -1099,7 +1312,7 @@ def profile_round(dev, smi, train, ghost) -> None:
         f"round")
 
 
-def time_decode_step(engine, smi, position: int = 64) -> None:
+def time_decode_step(engine, smi, position: int = SERVE_POSITION) -> None:
     """One full-width decode step of every slot at ``position``: its time on
     the host clock (call + synchronise), its time on the device (the same
     step captured in a CUDA graph and replayed, so the host's per-op cost
@@ -1164,21 +1377,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     eval_whole_path(dev)
     torch.cuda.empty_cache()
+    worst["flash_attention"] = max(worst["flash_attention"],
+                                   eval_layers_bf16(dev))
+    torch.cuda.empty_cache()
     blocked_train_path(dev)
     torch.cuda.empty_cache()
     times = {"decode_attention": time_decode(SERVE_SHAPE, dev, smi)}
+    time_decode(SERVE_SHAPE, dev, smi, position=SERVE_POSITION)
     time_decode(LONG_SHAPE, dev, smi)
     ghost = time_ghost(dev, smi)
     times["ghost_norm"] = ghost["row"]
     profile_round(dev, smi, train, ghost)
     torch.cuda.empty_cache()
     times["flash_attention"] = time_flash(dev, smi)
-    wall_ms = time_eval_forward(dev, smi)
-    share = 32 * times["flash_attention"]["ms"] / wall_ms
-    say(f"eval forward: {ARCH} untied head full width bfloat16, use_flash, "
-        f"B=8 S=2048, on {smi}: wall {wall_ms:.2f} ms (median of 5); "
-        f"flash_attention at the times phase's median: 32 x "
-        f"{times['flash_attention']['ms']:.4f} ms = {100 * share:.1f}% of it")
+    time_eval_forward(dev, smi, times["flash_attention"]["ms"])
     lines = [{**k, "launches": launches[k["name"]],
               "max_abs_err": worst[k["name"]], **times[k["name"]]}
              for k in KERNELS]

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.layers import pname
 from repro_torch.models.transformer import check_supported
 
@@ -44,9 +45,11 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
                                                         dtype=dtype)
 
 
-def params_from_jax(np_params: dict, cfg, device="cpu") -> dict:
-    """The port's parameters from the reference's (numpy leaves)."""
+def params_from_jax(np_params: dict, cfg, device=DEFAULT_DEVICE) -> dict:
+    """The port's parameters from the reference's (numpy leaves), on
+    ``device`` (the card unless the caller asks for the CPU)."""
     check_supported(cfg)
+    device = resolve_device(device)
     dt = cfg.pdtype
     layer = np_params["group0"]["e0"]
     params = {

@@ -14,25 +14,36 @@
 // H100 needs before compute could matter; the least time is those bytes
 // over 3.35 TB/s.
 //
-// Design (simple first): one thread block per (b, kv_head) serves all
-// G = H / KV query heads of that KV head, so each K and V row is read from
-// device memory once.  A loop walks the attended rows in tiles of TK keys
-// staged through shared memory as float32 (rows padded by one float so the
-// score and PV loops are free of bank conflicts), with an online softmax
-// whose running max and sum live in shared memory.  Each thread loads its
-// share of a tile as 16-byte vectors into registers, and issues the next
-// tile's loads before computing on the current one, so a tile's global
-// latency hides behind the previous tile's compute.  The loop covers only
-// the attended rows, where the TPU kernel streams the whole cache and
-// masks it.  At the serving shape (B=8, KV=5) this launches only 40 blocks
-// on 132 SMs; split-KV with a combine pass, cp.async or TMA loads, and a
-// CUDA graph around the decode step are later work.
+// Design: flash-decoding, two kernels.  The split kernel's grid is
+// (b * KV + kv_head, split): each block walks one contiguous chunk of the
+// cache and serves all G = H / KV query heads of its KV head, so each K and
+// V row is read from device memory once.  Within the chunk it walks the
+// attended rows in tiles of TK keys staged through shared memory as
+// float32 (rows padded by one float so the score and PV loops are free of
+// bank conflicts), with an online softmax whose running max and sum live in
+// shared memory; each thread loads its share of a tile as 16-byte vectors
+// into registers, and issues the next tile's loads before computing on the
+// current one.  It writes the chunk's float32 statistics (m, l, acc[G, D],
+// acc not yet divided by l) to scratch; a chunk wholly past index[b], or
+// wholly before the window, writes m = NEG_INF, l = 0 and returns.  The
+// combine kernel (one block per (b, kv_head)) merges the chunks in a fixed
+// order, out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30)
+// over the chunks with l_s > 0, so nothing is atomic and a run repeats bit
+// for bit.  The combine is a programmatic dependent launch: its blocks are
+// scheduled while the split grid runs and wait (griddepcontrol.wait) for
+// its completion, which hides the second launch's latency.  The chunk size comes from the shapes (B, KV, L) alone, never
+// from the values of `index`, and nothing reads `index` on the host, so a
+// decode step stays capturable as a CUDA graph.  At the serving shape
+// (B=8, KV=5, L=512) the wrapper's plan gives 8 chunks of 64 rows: 320
+// blocks on 132 SMs, where one block per (b, kv_head) gave 40.
 //
 // The wrapper guarantees 16-byte aligned k and v base pointers; with D a
-// multiple of 8 every row slice is then 16-byte aligned too.
+// multiple of 8 every row slice is then 16-byte aligned too.  It allocates
+// the scratch; the kernels allocate nothing.
 //
-// Plain C interface for ctypes: decode_attention_launch() launches on the
-// given stream, does not synchronise, and returns cudaGetLastError().
+// Plain C interface for ctypes: decode_attention_launch() launches both
+// kernels on the given stream, does not synchronise, and returns the first
+// launch error (0 when both launched).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,12 +109,26 @@ struct TileRegs {
   }
 };
 
+// x, as a value the compiler cannot reason about.  nvcc's optimizer does
+// not finish the split kernel when it can see that the walked rows [lo, hi]
+// lie inside [split * chunk, split * chunk + chunk - 1]; hiding the chunk's
+// bounds behind a move keeps the loop as the single-pass kernel had it.
+__device__ __forceinline__ int opaque(int x) {
+  int y;
+  asm("mov.b32 %0, %1;" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// One chunk of the cache for one (b, kv_head): its statistics into scratch.
+// part_acc is [B * KV][n_splits][G][D] and part_ml [B * KV][n_splits][G][2]
+// (m, l), both float32.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const int* __restrict__ index, T* __restrict__ out,
-                            int L, int H, int KV, int window, float scale) {
+    decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ index,
+                        float* __restrict__ part_acc,
+                        float* __restrict__ part_ml, int L, int H, int KV,
+                        int window, int chunk, float scale) {
   constexpr int TK = D <= 64 ? 64 : 32;  // keys per tile (static smem < 48 KB)
   constexpr int RS = D + 1;              // padded shared row
   constexpr int ACC = (kMaxGroup * D + kThreads - 1) / kThreads;
@@ -116,19 +141,36 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float l_s[kMaxGroup];      // running sum
   __shared__ float alpha_s[kMaxGroup];  // this tile's rescale factor
 
-  const int b = blockIdx.x / KV;
-  const int kvh = blockIdx.x % KV;
+  const int bk = blockIdx.x;            // b * KV + kv_head
+  const int split = blockIdx.y;
+  const int b = bk / KV;
+  const int kvh = bk % KV;
   const int G = H / KV;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  float* ml = part_ml + ((size_t)bk * gridDim.y + split) * G * 2;
+  float* pacc = part_acc + ((size_t)bk * gridDim.y + split) * G * D;
 
-  // attended cache rows [lo, hi]; hi is clamped so a bad index cannot read
-  // past the cache, and an empty range gives a zero output
+  // attended cache rows of this chunk, [lo, hi]; the last row is clamped
+  // so a bad index cannot read past the cache.  An empty range (the chunk
+  // lies wholly past index[b] or before the window) writes the empty
+  // statistics m = NEG_INF, l = 0 and returns before it loads q or waits
+  // at a barrier; the range is the same for the whole block.
+  // the combine grid may launch now (it waits for this grid to finish)
+  asm volatile("griddepcontrol.launch_dependents;");
   const int idx = index[b];
-  const int hi = idx < L - 1 ? idx : L - 1;
-  int lo = 0;
-  if (window > 0) lo = max(idx - window + 1, 0);
+  const int c0 = opaque(split * chunk);
+  const int c1 = opaque(split * chunk + chunk - 1);
+  const int hi = min(min(idx, L - 1), c1);
+  const int lo = max(window > 0 ? idx - window + 1 : 0, c0);
+  if (lo > hi) {
+    if (tid < G) {
+      ml[2 * tid] = kNegInf;
+      ml[2 * tid + 1] = 0.f;
+    }
+    return;
+  }
 
   for (int e = tid; e < G * D; e += kThreads) {
     const int g = e / D, d = e % D;
@@ -148,7 +190,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* vb = v + (size_t)b * L * row + (size_t)kvh * D;
 
   TileRegs<T, D, TK> regs;
-  if (lo <= hi) regs.load(kb, vb, row, lo, min(TK, hi - lo + 1), tid);
+  regs.load(kb, vb, row, lo, min(TK, hi - lo + 1), tid);
   for (int t0 = lo; t0 <= hi; t0 += TK) {
     const int n = min(TK, hi - t0 + 1);  // valid keys in this tile
     __syncthreads();  // last tile's readers are done; q_s, m_s published
@@ -211,59 +253,117 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < ACC; ++i) {
     const int e = tid + i * kThreads;
-    if (e < G * D) {
-      const int g = e / D, d = e % D;
-      store(&out[((size_t)b * H + kvh * G + g) * D + d],
-            acc[i] / fmaxf(l_s[g], 1e-30f));
+    if (e < G * D) pacc[e] = acc[i];  // e = g * D + d
+  }
+  if (tid < G) {
+    ml[2 * tid] = m_s[tid];
+    ml[2 * tid + 1] = l_s[tid];
+  }
+}
+
+// Merge one (b, kv_head)'s chunks in chunk order into [B,1,H,D].
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    decode_combine_kernel(const float* __restrict__ part_acc,
+                          const float* __restrict__ part_ml,
+                          T* __restrict__ out, int H, int KV, int n_splits) {
+  const int bk = blockIdx.x;
+  const int b = bk / KV;
+  const int kvh = bk % KV;
+  const int G = H / KV;
+  // wait until the split grid has finished and its writes are visible
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const float* ml = part_ml + (size_t)bk * n_splits * G * 2;
+  const float* pacc = part_acc + (size_t)bk * n_splits * G * D;
+  for (int e = threadIdx.x; e < G * D; e += kThreads) {
+    const int g = e / D, d = e % D;
+    float m = kNegInf;
+    for (int s = 0; s < n_splits; ++s)
+      if (ml[2 * (s * G + g) + 1] > 0.f) m = fmaxf(m, ml[2 * (s * G + g)]);
+    float num = 0.f, den = 0.f;
+    for (int s = 0; s < n_splits; ++s) {
+      const float l = ml[2 * (s * G + g) + 1];
+      if (l > 0.f) {  // an empty chunk's acc was never written
+        const float w = expf(ml[2 * (s * G + g)] - m);
+        num += w * pacc[(s * G + g) * D + d];
+        den += w * l;
+      }
     }
+    store(&out[((size_t)b * H + kvh * G + g) * D + d],
+          num / fmaxf(den, 1e-30f));
   }
 }
 
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, const void* index,
-            void* out, int B, int L, int H, int KV, int window,
-            cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, const void* index,
+            void* out, float* scratch, int B, int L, int H, int KV,
+            int window, int chunk, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
-  decode_attention_kernel<T, D><<<B * KV, kThreads, 0, stream>>>(
+  const int n_splits = (L + chunk - 1) / chunk;
+  float* part_acc = scratch;
+  float* part_ml = scratch + (size_t)B * H * n_splits * D;  // B*KV*n*G*D
+  decode_split_kernel<T, D><<<dim3(B * KV, n_splits), kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(index),
-      static_cast<T*>(out), L, H, KV, window, scale);
+      static_cast<const T*>(v), static_cast<const int*>(index), part_acc,
+      part_ml, L, H, KV, window, chunk, scale);
+  // programmatic dependent launch: the combine's blocks may be scheduled
+  // once every split block has started, and wait in the kernel for the
+  // split grid's completion, so its launch overlaps the split's work
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * KV);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaGetLastError();  // the split's launch
+  if (err != cudaSuccess) return err;
+  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, D>,
+                            static_cast<const float*>(part_acc),
+                            static_cast<const float*>(part_ml),
+                            static_cast<T*>(out), H, KV, n_splits);
 }
 
 template <typename T>
 int launch_dtype(const void* q, const void* k, const void* v,
-                 const void* index, void* out, int B, int L, int H, int KV,
-                 int D, int window, cudaStream_t stream) {
+                 const void* index, void* out, float* scratch, int B, int L,
+                 int H, int KV, int D, int window, int chunk,
+                 cudaStream_t stream) {
   switch (D) {
     case 32:
-      launch<T, 32>(q, k, v, index, out, B, L, H, KV, window, stream);
-      break;
+      return (int)launch<T, 32>(q, k, v, index, out, scratch, B, L, H, KV,
+                                window, chunk, stream);
     case 64:
-      launch<T, 64>(q, k, v, index, out, B, L, H, KV, window, stream);
-      break;
+      return (int)launch<T, 64>(q, k, v, index, out, scratch, B, L, H, KV,
+                                window, chunk, stream);
     case 128:
-      launch<T, 128>(q, k, v, index, out, B, L, H, KV, window, stream);
-      break;
+      return (int)launch<T, 128>(q, k, v, index, out, scratch, B, L, H, KV,
+                                 window, chunk, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.
-// H % KV == 0 and H / KV <= 16 are checked by the Python wrapper.
+// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.  chunk:
+// cache rows per split, >= 1.  scratch: B * H * ceil(L / chunk) * (D + 2)
+// float32.  H % KV == 0 and H / KV <= 16 are checked by the Python wrapper.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* index,
-                                       void* out, int B, int L, int H, int KV,
-                                       int D, int window, int dtype,
-                                       void* stream) {
+                                       void* out, void* scratch, int B, int L,
+                                       int H, int KV, int D, int window,
+                                       int chunk, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
+  if (chunk < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_dtype<float>(q, k, v, index, out, B, L, H, KV, D, window, s);
+    return launch_dtype<float>(q, k, v, index, out, sc, B, L, H, KV, D,
+                               window, chunk, s);
   if (dtype == 1)
-    return launch_dtype<__nv_bfloat16>(q, k, v, index, out, B, L, H, KV, D,
-                                       window, s);
+    return launch_dtype<__nv_bfloat16>(q, k, v, index, out, sc, B, L, H, KV,
+                                       D, window, chunk, s);
   return (int)cudaErrorInvalidValue;
 }

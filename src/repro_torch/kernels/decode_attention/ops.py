@@ -7,8 +7,16 @@
     raises — there is no fallback to the plain version on the card;
   * on CPU tensors returns ``decode_attention_plain``.
 
-``launches()`` counts kernel launches (never plain-version calls), so a
-run can show that its decode path went through the kernel.
+On the card one call is two CUDA kernels: a split kernel over chunks of
+the cache (``split_plan``: from the shapes and the card's SM count alone,
+never from ``index``) writing float32 statistics into scratch this wrapper
+allocates, and a combine kernel that merges them in a fixed order.
+``decode_attention_split_plain`` repeats that arithmetic in plain PyTorch
+for the tests.
+
+``launches()`` counts calls of the wrapper that reached the kernels, one
+per attention (not CUDA launches, and never plain-version calls), so a run
+can show that its decode path went through the kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 SOURCE = "decode_attention"
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16                                   # kMaxGroup in the source
+SPLIT_ROWS = 64           # a chunk is a multiple of this many cache rows
+BLOCKS_PER_SM = 4         # split blocks to aim for, per SM of the card
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
 
@@ -33,7 +43,7 @@ _launches = 0  # guarded by _lock
 
 
 def launches() -> int:
-    """Kernel launches since the last ``reset_launches()``."""
+    """Calls that launched the kernels since the last ``reset_launches()``."""
     with _lock:
         return _launches
 
@@ -47,10 +57,29 @@ def reset_launches() -> None:
 @functools.cache
 def _launcher():
     fn = _build.load(SOURCE).decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device (an H100 SXM has 132)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_plan(b: int, l: int, kv: int, sms: int) -> tuple[int, int]:
+    """(splits, chunk): how the kernel cuts a cache of ``l`` rows for ``b``
+    batch rows of ``kv`` KV heads on a card of ``sms`` SMs.  Enough splits for about ``BLOCKS_PER_SM * sms`` blocks, each
+    of at least ``SPLIT_ROWS`` rows; the chunk is a multiple of
+    ``SPLIT_ROWS`` and the last split may be short.  Shapes and the card
+    only: the values of ``index`` never change the plan."""
+    target = BLOCKS_PER_SM * sms
+    n = max(1, min(-(-l // SPLIT_ROWS), -(-target // (b * kv))))
+    rows = -(-l // n)                                  # ceil(l / n)
+    chunk = -(-rows // SPLIT_ROWS) * SPLIT_ROWS
+    return -(-l // chunk), chunk
 
 
 def _check(q, k, v, index, window) -> None:
@@ -112,17 +141,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {q.device}")
     _check_kernel(q, k, v, index)
     b, _, h, d = q.shape
+    l, kv = k.shape[1], k.shape[2]
+    n_splits, chunk = split_plan(b, l, kv, sm_count(q.device))
     out = torch.empty_like(q)
+    # per split and query head: acc [D], then (m, l), all float32
+    scratch = torch.empty(b * h * n_splits * (d + 2), dtype=torch.float32,
+                          device=q.device)
     with torch.cuda.device(q.device):
         err = _launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), index.data_ptr(),
-            out.data_ptr(), b, k.shape[1], h, k.shape[2], d,
-            0 if window is None else window, _DTYPE_CODES[q.dtype],
+            out.data_ptr(), scratch.data_ptr(), b, l, h, kv, d,
+            0 if window is None else window, chunk, _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed with "
                            f"CUDA error {err}")
     global _launches
     with _lock:
-        _launches += 1
+        _launches += 1   # one call, two CUDA kernels
     return out

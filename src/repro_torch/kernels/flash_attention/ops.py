@@ -8,11 +8,17 @@ its inputs against the reference's contract, then
     raises — there is no fallback to the plain version on the card;
   * on CPU tensors returns ``attention_plain``.
 
+The source holds two kernels and the launcher picks one by dtype:
+bfloat16 runs on the tensor cores (``mma.sync``), float32 on the CUDA
+cores (tensor cores would mean TF32, too coarse for the float32 limit).
+That is a dispatch between two hand-written kernels, not a fallback.
+
 The reference defines no backward for its kernel, and neither does the
 port: on CUDA tensors the wrapper raises when grad mode is on and an input
 requires grad, rather than return a result autograd would differentiate
 wrongly.  ``launches()`` counts kernel launches (never plain-version
-calls), so a run can show that its attention went through the kernel.
+calls), so a run can show that its attention went through the kernel;
+``launches(variant)`` counts those of one kernel (``VARIANTS``).
 """
 
 from __future__ import annotations
@@ -29,23 +35,29 @@ from repro_torch.kernels.flash_attention.ref import attention_plain
 SOURCE = "flash_attention"
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel each dtype launches: CUDA cores for float32, tensor cores for
+# bfloat16
+VARIANTS = {torch.float32: "simt_fp32", torch.bfloat16: "mma_bf16"}
 _INT32_MAX = 2**31 - 1
 _MAX_GRID_YZ = 65535
+_QUERY_TILE = 64   # query rows per block, in either kernel
 
 _lock = threading.Lock()
-_launches = 0  # guarded by _lock
+_launches = dict.fromkeys(VARIANTS.values(), 0)  # guarded by _lock
 
 
-def launches() -> int:
-    """Kernel launches since the last ``reset_launches()``."""
+def launches(variant: str | None = None) -> int:
+    """Kernel launches since the last ``reset_launches()``: all of them, or
+    those of one of ``VARIANTS``' kernels."""
     with _lock:
-        return _launches
+        return sum(_launches.values()) if variant is None else \
+            _launches[variant]
 
 
 def reset_launches() -> None:
-    global _launches
     with _lock:
-        _launches = 0
+        for name in _launches:
+            _launches[name] = 0
 
 
 @functools.cache
@@ -93,9 +105,10 @@ def _check_kernel(q, k, v) -> None:
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the kernel copies q, k and v in 16-byte pieces "
                          "and needs them 16-byte aligned")
-    if max(s, k.shape[1]) > _INT32_MAX or max(b, h) > _MAX_GRID_YZ:
-        raise ValueError("sequence lengths must fit int32, batch and heads "
-                         f"at most {_MAX_GRID_YZ}")
+    tiles = -(-s // _QUERY_TILE)
+    if max(s, k.shape[1]) > _INT32_MAX or max(b, h, tiles) > _MAX_GRID_YZ:
+        raise ValueError("sequence lengths must fit int32; batch, heads and "
+                         f"query tiles at most {_MAX_GRID_YZ}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention has no backward (the reference defines none "
@@ -112,8 +125,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (a window is set); query head h reads KV head h // (H // KV).  As in
     the reference, S must be a multiple of min(block_q, S) and L of
     min(block_k, L).  ``block_q`` and ``block_k`` only decide which
-    inputs are refused: the kernel's own tiles are 64 query rows by 32
-    keys, with the ragged edges masked, whatever they are.
+    inputs are refused: the kernels' own tiles (64 query rows by 64 keys
+    in bfloat16, by 32 in float32) mask the ragged edges, whatever they
+    are.
     """
     _check(q, k, v, window, block_q, block_k)
     if q.device.type == "cpu":
@@ -134,7 +148,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with "
                            f"CUDA error {err}")
-    global _launches
     with _lock:
-        _launches += 1
+        _launches[VARIANTS[q.dtype]] += 1
     return out

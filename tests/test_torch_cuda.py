@@ -6,12 +6,13 @@ with only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerances: ``decode_attention`` at ``tests/test_kernels.py``'s (3e-5
-float32, 3e-2 bfloat16) against its plain version on the same inputs;
-``flash_attention`` at 3e-5 in float32 and at atol 1e-3 + rtol 1e-2 in
-bfloat16 (both sides compute in float32 from the same inputs and differ by
-the output's rounding, a few ulps; 3e-2 is as large as a long row's
-typical output);
+Tolerances: ``decode_attention`` and ``flash_attention`` at 3e-5 in
+float32 and at atol 1e-3 + rtol 1e-2 in bfloat16 against their plain
+versions on the same inputs (both sides accumulate in float32 from the
+same inputs, the bf16 flash kernel on tensor cores with P in two bf16
+terms, and differ by the output's rounding, a few ulps;
+``tests/test_kernels.py``'s 3e-2 is as large as a long row's typical
+output);
 ``ghost_norm`` at rtol 1e-5, with a and g in one dtype or in two (as a
 training round meets them) — the kernel and the plain version both sum in
 float32 over the same inputs, in other orders.
@@ -76,6 +77,14 @@ def test_ghost_norm_kernel_refuses_non_contiguous_inputs(dev):
         ghost_ops.ghost_norm(a, torch.zeros((2, 4, 3), device=dev))
 
 
+# decode kernel against its plain version.  bfloat16: both sides
+# accumulate in float32 from the same bf16 inputs and differ by the
+# output's rounding (<= 1 ulp), as in flash's limit; an absolute 3e-2 is
+# as large as the typical output of a long cache and would pass a wrong tile
+DECODE_TOL = {"float32": dict(atol=3e-5, rtol=3e-5),
+              "bfloat16": dict(atol=1e-3, rtol=1e-2)}
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("b,l,h,kv,d,window", [(2, 256, 4, 2, 32, None),
                                                (1, 512, 8, 8, 64, None),
@@ -93,9 +102,51 @@ def test_decode_attention_kernel_matches_plain(dev, b, l, h, kv, d, window,
     v = torch.randn((n, l, kv, d), generator=g_, device=dev).to(DTYPES[dtype])
     index = torch.tensor(rows, dtype=torch.int32, device=dev)
     out = decode_ops.decode_attention(q, k, v, index, window=window)
-    tol = 3e-5 if dtype == "float32" else 3e-2
     torch.testing.assert_close(out.float(), decode_attention_plain(
-        q, k, v, index, window=window).float(), rtol=tol, atol=tol)
+        q, k, v, index, window=window).float(), **DECODE_TOL[dtype])
+
+
+def _split_rows(kind, l, c):
+    """(rows, window) of one edge case, with c the kernel's chunk."""
+    if kind == "index0":
+        return [0] * 8, None
+    if kind == "boundaries":
+        return [c - 1, c, c + 1, 2 * c - 1, 2 * c, 2 * c + 1, l - 2,
+                l - 1], None
+    if kind == "window-across-splits":
+        return [c + c // 2] * 4 + [c + 1] * 4, c
+    return [0, 1, c, l // 2, l - c - 1, l - 3, l - 2, l - 1], None
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("l,h,kv,d,kind", [
+    pytest.param(l, h, kv, d, kind, id=f"L{l}-{kind}")
+    for l, h, kv, d in [(512, 15, 5, 64), (1000, 8, 1, 128), (300, 4, 2, 32)]
+    for kind in ("index0", "boundaries", "window-across-splits",
+                 "rows-far-apart")])
+def test_decode_attention_split_edges_match_plain(dev, l, h, kv, d, kind,
+                                                  dtype):
+    """Around the chunks that ``split_plan`` gives 8 rows of the case's
+    cache on this card (L = 1000 and 300 are not multiples of theirs): the
+    plain version's values, one counted launch per call, and a second call
+    bit for bit (the combine has a fixed order)."""
+    c = decode_ops.split_plan(8, l, kv, decode_ops.sm_count(dev))[1]
+    rows, window = _split_rows(kind, l, c)
+    g_ = torch.Generator(device=dev).manual_seed(l + d + len(set(rows)))
+    n = len(rows)
+    q = (0.5 * torch.randn((n, 1, h, d), generator=g_, device=dev)).to(
+        DTYPES[dtype])
+    k = (0.5 * torch.randn((n, l, kv, d), generator=g_, device=dev)).to(
+        DTYPES[dtype])
+    v = torch.randn((n, l, kv, d), generator=g_, device=dev).to(DTYPES[dtype])
+    index = torch.tensor(rows, dtype=torch.int32, device=dev)
+    before = decode_ops.launches()
+    out = decode_ops.decode_attention(q, k, v, index, window=window)
+    assert decode_ops.launches() == before + 1
+    torch.testing.assert_close(out.float(), decode_attention_plain(
+        q, k, v, index, window=window).float(), **DECODE_TOL[dtype])
+    assert torch.equal(out, decode_ops.decode_attention(q, k, v, index,
+                                                        window=window))
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -108,6 +159,17 @@ def test_decode_attention_kernel_matches_plain(dev, b, l, h, kv, d, window,
     (1, 192, 64, 4, 1, 32, False, 100),        # L < S: rows with no key
     (2, 100, 100, 15, 5, 64, True, None),      # ragged tiles, SmolLM heads
     (1, 64, 64, 16, 1, 64, True, None),        # group 16: split over blocks
+    (2, 96, 96, 15, 5, 64, True, None),        # S = L = 96: ragged tiles
+    (1, 200, 200, 15, 5, 64, True, None),      # S = L = 200
+    (1, 200, 200, 15, 5, 64, True, 1),         # window 1: the diagonal
+    (2, 256, 256, 4, 4, 64, True, 64),         # window = the key tile
+    (1, 320, 320, 8, 2, 64, True, 150),        # window over three tiles
+    (1, 128, 128, 5, 1, 32, True, None),       # group 5
+    (1, 128, 320, 8, 2, 64, True, 100),        # L > S with a window
+    (1, 200, 72, 15, 5, 64, True, 40),         # L < S: rows with no key
+    (1, 96, 160, 4, 1, 64, False, 50),         # non-causal window, ragged
+    (1, 200, 200, 4, 2, 32, True, 70),         # D = 32
+    (2, 200, 200, 8, 2, 128, True, None),      # D = 128
 ])
 def test_flash_attention_kernel_matches_plain(dev, b, s, l, h, kv, d, causal,
                                               window, dtype):
@@ -117,10 +179,11 @@ def test_flash_attention_kernel_matches_plain(dev, b, s, l, h, kv, d, causal,
     k = (0.5 * torch.randn((b, l, kv, d), generator=g_, device=dev)).to(
         DTYPES[dtype])
     v = torch.randn((b, l, kv, d), generator=g_, device=dev).to(DTYPES[dtype])
-    before = flash_ops.launches()
+    variant = flash_ops.VARIANTS[DTYPES[dtype]]
+    before = flash_ops.launches(variant)
     out = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
                                     block_q=s, block_k=l)
-    assert flash_ops.launches() == before + 1
+    assert flash_ops.launches(variant) == before + 1
     atol, rtol = (3e-5, 3e-5) if dtype == "float32" else (1e-3, 1e-2)
     torch.testing.assert_close(out.float(), attention_plain(
         q, k, v, causal=causal, window=window).float(), rtol=rtol, atol=atol)
@@ -144,8 +207,9 @@ def test_flash_attention_kernel_refuses_to_be_differentiated(dev):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_use_flash_forward_launches_once_per_layer(dev, dtype):
     """SmolLM-360M at full width: one kernel launch per layer (32) per
-    forward; in float32, the logits of the model's plain attention within
-    1e-3 (the whole-path tolerance of ``chip_smoke.py``)."""
+    forward, all of the dtype's kernel; in float32, the logits of the
+    model's plain attention within 1e-3 (the whole-path tolerance of
+    ``chip_smoke.py``)."""
     cfg = get_config("smollm-360m").replace(
         use_flash=True, param_dtype=dtype, compute_dtype=dtype)
     params = tf.init(cfg, 0, dev)
@@ -155,6 +219,8 @@ def test_use_flash_forward_launches_once_per_layer(dev, dtype):
     with torch.no_grad():
         logits, _ = tf.forward(cfg, params, {"tokens": tokens})
     assert flash_ops.launches() == cfg.n_layers == 32
+    # bf16 through the tensor-core kernel, float32 through the CUDA-core one
+    assert flash_ops.launches(flash_ops.VARIANTS[DTYPES[dtype]]) == 32
     assert logits.dtype == DTYPES[dtype]
     assert bool(torch.isfinite(logits).all())
     if dtype == "float32":

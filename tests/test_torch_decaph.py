@@ -51,8 +51,8 @@ def lm():
     jmodel = jax_transformer_model(jcfg)
     p0 = jax.tree_util.tree_map(np.asarray, jmodel.init_fn(jax.random.key(0)))
     tmodel = dataclasses.replace(transformer_model(tcfg, device="cpu"),
-                                 init_fn=lambda seed: params_from_jax(p0,
-                                                                      tcfg))
+                                 init_fn=lambda seed: params_from_jax(
+                                     p0, tcfg, device="cpu"))
     return dict(
         jcfg=jcfg, tcfg=tcfg, jmodel=jmodel, tmodel=tmodel,
         jsilos=jax_token_silos(jcfg, hospitals=3, n_per=16, seq_len=12,

@@ -9,6 +9,12 @@ shapes of ``tests/test_kernels.py``, each with two rows appended at index
 0 and index L-1; tolerances are that file's (3e-5 fp32, 3e-2 bf16).  On
 the CPU the wrapper runs the plain version, so these tests check the
 algorithm; ``chip_smoke.py`` holds the CUDA kernel against it on the card.
+
+The CUDA kernel splits the cache into chunks and merges their statistics
+(flash-decoding).  ``decode_attention_split_plain`` repeats that
+arithmetic; the split tests hold it against ``decode_attention_plain`` and
+the JAX oracle in float32 at rtol 1e-5 (atol 1e-6 for outputs near 0): the
+same sums, grouped by chunk.
 """
 
 import jax.numpy as jnp
@@ -19,6 +25,8 @@ import torch
 from repro.kernels.decode_attention.kernel import decode_attention_pallas
 from repro.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.decode_attention import ops
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_plain, decode_attention_split_plain)
 
 torch.set_num_threads(1)
 
@@ -106,3 +114,68 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         k = k.bfloat16()
     with pytest.raises((ValueError, TypeError)):
         ops.decode_attention(q, k, k, idx, **kw)
+
+
+H100_SMS = 132   # SMs of an H100 SXM, the card the plans are sized for
+
+# (rows, l, h, kv, d, window, chunk): one below, at and one above a chunk
+# boundary with L not a multiple of the chunk; chunks wholly past the index;
+# windows across two chunks; the serving shape at the wrapper's own plan
+SPLIT_CASES = [
+    ([0, 63, 64, 65, 127, 128, 199], 200, 4, 2, 32, None, 64),
+    ([0, 0, 5, 40], 256, 4, 1, 32, None, 64),
+    ([100, 64, 127, 128, 255], 256, 8, 2, 64, 64, 64),
+    ([37, 90, 150], 300, 6, 3, 32, 70, 32),
+    ([0, 1, 63, 64, 200, 400, 510, 511], 512, 15, 5, 64, None,
+     ops.split_plan(8, 512, 5, H100_SMS)[1]),
+    ([3, 700, 1000, 1023], 1024, 8, 1, 128, 300,
+     ops.split_plan(4, 1024, 1, H100_SMS)[1]),
+]
+
+
+@pytest.mark.parametrize("rows,l,h,kv,d,window,chunk", SPLIT_CASES)
+def test_split_and_combine_matches_plain_and_reference(rows, l, h, kv, d,
+                                                       window, chunk):
+    q, k, v = _case(len(rows), l, h, kv, d, "float32", seed=len(rows) + l)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    idx = torch.tensor(rows, dtype=torch.int32)
+    out = decode_attention_split_plain(tq, tk, tv, idx, chunk=chunk,
+                                       window=window)
+    plain = decode_attention_plain(tq, tk, tv, idx, window=window)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    for r, i in enumerate(rows):
+        ref = np.asarray(decode_attention_ref(jq, jk, jv, i, window=window))
+        np.testing.assert_allclose(out[r].numpy(), ref[r], rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_split_and_combine_in_one_chunk_is_one_pass():
+    """A chunk as long as the cache is the single-pass softmax: the
+    combine's weight e^(m - M) is 1."""
+    q, k, v = (torch.from_numpy(a) for a in _case(3, 96, 4, 2, 32, "float32"))
+    idx = torch.tensor([0, 50, 95], dtype=torch.int32)
+    one = decode_attention_split_plain(q, k, v, idx, chunk=96, window=20)
+    np.testing.assert_allclose(one.numpy(), decode_attention_plain(
+        q, k, v, idx, window=20).numpy(), rtol=1e-6, atol=1e-7)
+
+
+def test_rows_attending_nothing_come_out_zero():
+    """An index past the cache with a window that ends before it leaves
+    every chunk empty; the kernel's combine gives 0 there."""
+    q, k, v = (torch.from_numpy(a) for a in _case(2, 128, 4, 2, 32, "float32"))
+    idx = torch.tensor([300, 10], dtype=torch.int32)
+    out = decode_attention_split_plain(q, k, v, idx, chunk=64, window=8)
+    assert torch.all(out[0] == 0) and torch.all(out[1] != 0)
+
+
+@pytest.mark.parametrize("b,l,kv", [(8, 512, 5), (8, 4096, 5), (1, 8, 1),
+                                    (2, 256, 2), (64, 512, 5), (1, 1000, 1)])
+def test_split_plan_comes_from_shapes(b, l, kv):
+    n, chunk = ops.split_plan(b, l, kv, H100_SMS)
+    assert chunk % ops.SPLIT_ROWS == 0 and (n - 1) * chunk < l <= n * chunk
+    # at least 2 blocks per SM of an H100 where the cache has the rows
+    assert b * kv * n >= min(2 * H100_SMS, b * kv * -(-l // ops.SPLIT_ROWS))
+    if (b, l, kv) == (8, 512, 5):                 # the serving shape
+        assert (n, chunk) == (8, 64)              # 320 blocks on 132 SMs

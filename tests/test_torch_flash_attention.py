@@ -9,7 +9,16 @@ seed and rounded through the working dtype, so both frameworks see the
 same numbers.  Tolerances are ``tests/test_kernels.py``'s: 3e-5 in
 float32, 3e-2 in bfloat16.  ``chip_smoke.py`` and ``tests/test_torch_cuda.py``
 hold the CUDA kernel against ``attention_plain`` on the card.
+
+The bf16 CUDA kernel runs on tensor cores and carries P into P·V as bf16.
+``_tensor_core_arithmetic`` repeats its arithmetic in float32 (64-key
+tiles, online softmax in log2 units, P in one or two bf16 terms), and two
+tests show why the kernel keeps two terms: with one, rows that see a few
+keys miss the card's bf16 limit (atol 1e-3 + rtol 1e-2 against
+``attention_plain``); with two, every row meets it.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -72,6 +81,74 @@ def test_attention_plain_matches_reference(b, s, l, h, kv, d, causal, window,
         :, seen], atol=tol, rtol=tol)
     np.testing.assert_allclose(ours, np.asarray(pallas, np.float32), atol=tol,
                                rtol=tol)
+
+
+def _tensor_core_arithmetic(q, k, v, causal, window, p_terms):
+    """The bf16 kernel's arithmetic on bf16 q, k, v: exact bf16 products
+    summed in float32, 64-key tiles, scores in log2 units, masked
+    probabilities 0, the normaliser from float32 P, and P rounded into
+    ``p_terms`` bf16 terms (hi, then lo = P - hi) before P·V."""
+    b, s, h, d = q.shape
+    l, kv = k.shape[1], k.shape[2]
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(h // kv, dim=2) for t in (k, v))
+    sc = torch.einsum("bshd,blhd->bhsl", qf, kf) * (
+        math.log2(math.e) / math.sqrt(d))
+    i, j = torch.arange(s)[:, None], torch.arange(l)[None, :]
+    ok = torch.ones((s, l), dtype=torch.bool)
+    if causal:
+        ok &= j <= i
+    if window is not None:
+        ok &= j > i - window
+    m = torch.full((b, h, s), -1e30)
+    den = torch.zeros((b, h, s))
+    acc = torch.zeros((b, h, s, d))
+    for t0 in range(0, l, 64):
+        keep = ok[:, t0:t0 + 64]
+        st = torch.where(keep, sc[..., t0:t0 + 64], -1e30)
+        m_new = torch.maximum(m, st.amax(dim=-1))
+        p = torch.where(keep, torch.exp2(st - m_new[..., None]), 0.0)
+        alpha = torch.exp2(m - m_new)
+        den = alpha * den + p.sum(dim=-1)
+        hi = p.bfloat16().float()
+        terms = hi if p_terms == 1 else hi + (p - hi).bfloat16().float()
+        acc = alpha[..., None] * acc + torch.einsum(
+            "bhsl,blhd->bhsd", terms, vf[:, t0:t0 + 64])
+        m = m_new
+    out = acc / den.clamp(min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).bfloat16()
+
+
+def _outside_bf16_limit(out, ref) -> int:
+    err = (out.float() - ref.float()).abs()
+    return int((err > 1e-3 + 1e-2 * ref.float().abs()).sum())
+
+
+@pytest.mark.parametrize("b,s,l,h,kv,d,causal,window", CASES + [
+    (2, 512, 512, 15, 5, 64, True, None),     # SmolLM-360M's heads
+    (1, 200, 72, 15, 5, 64, True, 40),        # ragged, rows with no key
+])
+def test_two_bf16_terms_of_p_meet_the_kernel_limit(b, s, l, h, kv, d,
+                                                   causal, window):
+    q, k, v = _port(_inputs(b, s, l, h, kv, d, "bfloat16", seed=7),
+                    "bfloat16")
+    out = _tensor_core_arithmetic(q, k, v, causal, window, p_terms=2)
+    assert _outside_bf16_limit(out, attention_plain(
+        q, k, v, causal=causal, window=window)) == 0
+
+
+def test_one_bf16_term_of_p_misses_the_kernel_limit():
+    """FlashAttention-2 rounds P to bf16 once.  A row that sees two keys
+    then moves by up to 2^-9 of the smaller weight times |v|, more than
+    1e-3 where its output is near 0: some outputs of a causal case miss
+    the limit that two terms meet."""
+    q, k, v = _port(_inputs(2, 512, 512, 15, 5, 64, "bfloat16", seed=7),
+                    "bfloat16")
+    ref = attention_plain(q, k, v, causal=True)
+    assert _outside_bf16_limit(_tensor_core_arithmetic(
+        q, k, v, True, None, p_terms=1), ref) > 0
+    assert _outside_bf16_limit(_tensor_core_arithmetic(
+        q, k, v, True, None, p_terms=2), ref) == 0
 
 
 def _rows_with_keys(s, l, causal, window):

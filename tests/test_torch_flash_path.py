@@ -127,8 +127,8 @@ def lm():
     labels = np.full_like(tokens, -1)
     labels[:, :-1] = tokens[:, 1:]
     return dict(jcfg=jcfg, tcfg=tcfg, jparams=jparams, np_params=np_params,
-                tparams=params_from_jax(np_params, tcfg), tokens=tokens,
-                labels=labels)
+                tparams=params_from_jax(np_params, tcfg, device="cpu"),
+                tokens=tokens, labels=labels)
 
 
 def test_forward_matches_reference(lm):
@@ -201,7 +201,8 @@ def test_sigma0_round_matches_reference(lm):
     jmodel = jax_transformer_model(lm["jcfg"])
     tmodel = dataclasses.replace(
         transformer_model(lm["tcfg"], device="cpu"),
-        init_fn=lambda seed: params_from_jax(lm["np_params"], lm["tcfg"]))
+        init_fn=lambda seed: params_from_jax(lm["np_params"], lm["tcfg"],
+                                             device="cpu"))
     jmodel = dataclasses.replace(jmodel, init_fn=lambda key: lm["jparams"])
     silos = dict(hospitals=2, n_per=4, seq_len=SEQ, seed=0)
 

@@ -43,7 +43,7 @@ def lm():
     tcfg = get_smoke_config("smollm-360m").replace(tie_embeddings=False)
     jparams = jtf.init(jcfg, jax.random.key(0))
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
-                              tcfg)
+                              tcfg, device="cpu")
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, tcfg.vocab_size, (6, 12)).astype(np.int32)
     tokens[0, 3:9] = 5                      # a repeated token

@@ -40,7 +40,8 @@ def models():
     params = jtf.init(jcfg, jax.random.key(0))
     np_params = jax.tree_util.tree_map(np.asarray, params)
     tcfg = get_smoke_config("smollm-360m")
-    return jcfg, params, tcfg, params_from_jax(np_params, tcfg)
+    return jcfg, params, tcfg, params_from_jax(np_params, tcfg,
+                                               device="cpu")
 
 
 def _cfgs(models, decode_kernel):

@@ -46,7 +46,7 @@ def engines():
     jcfg = jax_smoke_config("smollm-360m")
     params = jtf.init(jcfg, jax.random.key(0))
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, params),
-                              get_smoke_config("smollm-360m"))
+                              get_smoke_config("smollm-360m"), device="cpu")
     j = jengine.ServeEngine(jengine.ServeConfig(
         slots=2, max_len=32, temperature=0.0), params=params)
     t = tengine.ServeEngine(tengine.ServeConfig(
