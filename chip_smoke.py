@@ -13,8 +13,9 @@ script exits non-zero, printing no result:
      evaluation paths from ``src/repro_torch/csrc`` (one process per
      source, all at once) and prints each kernel's registers, static
      shared memory and spills as ``ptxas -v`` reported them, and the HMMA
-     (tensor-core) instructions of each flash kernel where ``cuobjdump``
-     exists (the bf16 kernels must have some);
+     (tensor-core) instructions of each flash and ghost-norm kernel where
+     ``cuobjdump`` exists (the bf16 flash kernels and every ghost-norm
+     instantiation, one per (a, g) dtype pair, must have some);
   3. kernel vs plain — each kernel against its plain PyTorch version on
      the card, in bfloat16 and float32, and against a second launch on the
      same inputs bit for bit: ``decode_attention`` at the shapes of
@@ -24,10 +25,13 @@ script exits non-zero, printing no result:
      boundary, a window across two chunks, L not a multiple of the chunk,
      rows of one batch far apart), at 1e-4 in float32 and atol 1e-3 +
      rtol 1e-2 in bfloat16; ``ghost_norm`` at the shapes of
-     ``tests/test_kernels.py`` and at the training shapes (B=16, S=256,
-     every dense layer of SmolLM-360M and its head), also with a and g in
-     different dtypes (bf16 and float32 either way round), as a round
-     meets once the parameters are float32; ``flash_attention`` at the
+     ``tests/test_kernels.py``, at the training shapes (B=16, S=256,
+     every dense layer of SmolLM-360M and its head) and at its tiles' and
+     copies' edges (ragged S, widths of one K-step, rows that are not
+     16-byte multiples, base addresses off 16 bytes), in every (a, g)
+     dtype pair (bf16 and float32 either way round too, as a round meets
+     them once the parameters are float32), at rtol 1e-4, and bit for bit
+     on a second launch; ``flash_attention`` at the
      shapes of ``tests/test_kernels.py`` (MQA, a window, non-causal), L != S,
      the evaluation shape (B=8, S=2048, 15 heads on 5) and the edges of its
      tiles (ragged S and L, windows of 1, one key tile and three, groups of
@@ -71,7 +75,8 @@ script exits non-zero, printing no result:
      and no ``flash_attention`` launch;
  11. times — each kernel, its plain version and one PyTorch library call
      (a yardstick the port never calls) on CUDA events, beside the least
-     time the card could take; a training round's wall time, a profiled
+     time the card could take (float32 ghost-norm products at the 3xTF32
+     rate, a third of TF32's); a training round's wall time, a profiled
      round's device busy time and ``ghost_norm`` share, the wall time of
      one evaluation forward and the flash kernel's share of it, and a
      profiled evaluation forward's device busy time, idle share and top
@@ -129,6 +134,10 @@ SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the ghost-norm kernel's float32 products are three TF32 products each
+# (3xTF32 on the tensor cores), so the least time for its float32 work is
+# at a third of the TF32 peak; its bf16 products at the bf16 peak
+GHOST_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 L2_BYTES = 50 * 2**20
 # a library call against the plain version, before it is timed as a
 # yardstick (SDPA may round P to bf16, so bf16 gets test_kernels.py's 3e-2)
@@ -167,6 +176,18 @@ KERNEL_CASES = [
 # participant and round
 GHOST_TEST_CASES = [(2, 64, 32, 16), (1, 96, 48, 48), (3, 128, 64, 8),
                     (2, 32, 16, 16)]
+# the edges of the kernel's tiles (64 rows) and copies (16 bytes): ragged S;
+# widths of one 32-byte K-step (8 float32, 16 bf16 columns); rows that are
+# not 16-byte multiples (100, 70 and 33 columns: 200, 140, 66 bytes in
+# bf16, 400, 280, 132 in float32), which take 8-, 4- and 2-byte copies;
+# one tile pair over wide rows, which split_plan shares among 8 blocks
+GHOST_EDGE_CASES = [(4, 300, 100, 70), (2, 100, 33, 37), (2, 64, 8, 16),
+                    (1, 65, 16, 8), (3, 200, 960, 320), (1, 64, 4096, 4096)]
+# (shape, storage offset in elements): a and g views that start 1, 2 or 3
+# elements into their buffers, off a 16-byte address, so the kernel takes
+# its narrower copies at widths whose rows are 16-byte multiples
+GHOST_OFFSET_CASES = [((2, 128, 64, 48), 1), ((2, 256, 960, 2560), 2),
+                      ((3, 100, 40, 24), 3)]
 GHOST_TRAIN_SHAPES = {(16, 256, 960, 960): 64, (16, 256, 960, 320): 64,
                       (16, 256, 960, 2560): 64, (16, 256, 2560, 960): 32,
                       (16, 256, 960, 49152): 1}
@@ -273,8 +294,9 @@ def _short(kernel: str) -> str:
 
 def build() -> None:
     """Build every source; print each kernel's registers, static shared
-    memory and spills as ptxas reported them, and the flash library's
-    tensor-core (HMMA) instructions per kernel."""
+    memory and spills as ptxas reported them, the ghost-norm kernel's
+    dynamic shared memory and resident blocks per SM, and the tensor-core
+    (HMMA) instructions per flash and ghost-norm kernel."""
     spent = _build.build(KERNEL_SOURCES)
     say(f"build: {', '.join(f'{n}.cu' for n in KERNEL_SOURCES)} -> "
         f"{', '.join(_build.library_path(n).name for n in KERNEL_SOURCES)} "
@@ -285,16 +307,27 @@ def build() -> None:
                 f"{r['registers']} registers, {r['smem']} B static shared "
                 f"memory, {r['stack']} B stack, spills {r['spill_stores']} B "
                 f"stored / {r['spill_loads']} B loaded")
-    hmma = _build.sass_counts("flash_attention", "HMMA")
-    if hmma is None:
-        say("sass: no cuobjdump on this machine; HMMA not counted")
-        return
-    say("sass: HMMA instructions in flash_attention.cu: " +
-        ", ".join(f"{_short(k)} {n}" for k, n in hmma.items()))
-    mma = [n for k, n in hmma.items() if "mma_kernel" in k]
-    if len(mma) != len(flash_ops.HEAD_DIMS) or min(mma) < 1:
-        raise AssertionError("the bf16 flash kernel has no tensor-core "
-                             "instructions")
+    for ta, tg in GHOST_DTYPES:
+        blocks = ghost_ops.blocks_per_sm(ta, tg)
+        say(f"resources: ghost_norm.cu ghost_norm_tiles a {str(ta)[6:]}, g "
+            f"{str(tg)[6:]}: {ghost_ops.smem_bytes(ta, tg)} B dynamic shared"
+            f" memory, {blocks} blocks resident per SM")
+        if blocks < 2:
+            raise AssertionError("fewer than 2 ghost-norm blocks fit on an SM")
+    for name, tensor_core in (("flash_attention", "mma_kernel"),
+                              ("ghost_norm", "ghost_norm_tiles")):
+        hmma = _build.sass_counts(name, "HMMA")
+        if hmma is None:
+            say("sass: no cuobjdump on this machine; HMMA not counted")
+            return
+        say(f"sass: HMMA instructions in {name}.cu: " +
+            ", ".join(f"{_short(k)} {n}" for k, n in hmma.items()))
+        mma = [n for k, n in hmma.items() if tensor_core in k]
+        want = len(flash_ops.HEAD_DIMS) if name == "flash_attention" else \
+            len(GHOST_DTYPES)
+        if len(mma) != want or min(mma) < 1:
+            raise AssertionError(f"a tensor-core kernel of {name}.cu has no "
+                                 f"tensor-core instructions")
 
 
 # -- 3. kernel against its plain version ----------------------------------------
@@ -387,17 +420,29 @@ def _decode_check(q, k, v, idx, window, what) -> float:
     return err
 
 
+def _offset(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of x that starts ``offset`` elements into its
+    buffer."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def _ghost_inputs(b, s, d_in, d_out, dtype, seed, dev, *, unit=False,
-                  g_dtype=None):
+                  g_dtype=None, offset=0):
     """a and g for one ghost-norm call, a in ``dtype`` and g in ``g_dtype``
     (default: ``dtype``).  ``unit``: activations of unit scale and
     cotangents scaled so each example's norm^2 is about 1, as in training;
-    otherwise the scales of tests/test_kernels.py."""
+    otherwise the scales of tests/test_kernels.py.  ``offset``: both start
+    that many elements into their buffers."""
     g_ = torch.Generator(device=dev).manual_seed(seed)
     sa, sg = (1.0, 1.0 / math.sqrt(s * d_in * d_out)) if unit else (0.5, 0.1)
     a = (sa * torch.randn((b, s, d_in), generator=g_, device=dev)).to(dtype)
     g = (sg * torch.randn((b, s, d_out), generator=g_, device=dev)).to(
         g_dtype or dtype)
+    if offset:
+        a, g = _offset(a, offset), _offset(g, offset)
     return a, g
 
 
@@ -412,31 +457,39 @@ GHOST_DTYPES = [(torch.bfloat16, torch.bfloat16),
 
 def ghost_vs_plain(dev) -> float:
     """ghost_norm against its plain version on every case in every (a, g)
-    dtype pair (|kernel - plain| <= GHOST_RTOL * |plain| + 1e-6); returns
-    the largest |kernel - plain|."""
+    dtype pair (|kernel - plain| <= GHOST_RTOL * |plain| + 1e-6), and
+    against a second launch bit for bit; returns the largest
+    |kernel - plain|."""
     worst = 0.0
-    cases = [(c, False) for c in GHOST_TEST_CASES] + \
-        [(c, True) for c in GHOST_TRAIN_SHAPES]
-    for i, ((b, s, d_in, d_out), unit) in enumerate(cases):
+    cases = [(c, False, 0) for c in GHOST_TEST_CASES + GHOST_EDGE_CASES] + \
+        [(c, False, off) for c, off in GHOST_OFFSET_CASES] + \
+        [(c, True, 0) for c in GHOST_TRAIN_SHAPES]
+    for i, ((b, s, d_in, d_out), unit, offset) in enumerate(cases):
         for a_dtype, g_dtype in GHOST_DTYPES:
             a, g = _ghost_inputs(b, s, d_in, d_out, a_dtype, i, dev,
-                                 unit=unit, g_dtype=g_dtype)
+                                 unit=unit, g_dtype=g_dtype, offset=offset)
             out = ghost_ops.ghost_norm(a, g)
+            again = ghost_ops.ghost_norm(a, g)
             ref = ghost_norm_blocked(a, g)
             torch.cuda.synchronize()
             if out.shape != (b,) or out.dtype != torch.float32:
                 raise AssertionError(f"kernel output {tuple(out.shape)} "
                                      f"{out.dtype}, expected ({b},) float32")
             err = (out - ref).abs()
-            ok = bool(torch.all(err <= GHOST_RTOL * ref.abs() + 1e-6))
+            same = torch.equal(out, again)
+            ok = bool(torch.all(err <= GHOST_RTOL * ref.abs() + 1e-6)) and \
+                same
             rel = float((err / ref.abs().clamp(min=1e-30)).max())
             say(f"kernel vs plain: ghost_norm B={b} S={s} d_in={d_in} "
-                f"d_out={d_out} a {str(a_dtype)[6:]}, g {str(g_dtype)[6:]}: "
-                f"max|err| {float(err.max()):.3e}, max rel {rel:.3e} (rtol "
-                f"{GHOST_RTOL:g}) {'ok' if ok else 'FAIL'}")
+                f"d_out={d_out} a {str(a_dtype)[6:]}, g {str(g_dtype)[6:]}"
+                f"{f', offset {offset}' if offset else ''}: max|err| "
+                f"{float(err.max()):.3e}, max rel {rel:.3e} (rtol "
+                f"{GHOST_RTOL:g}), second launch "
+                f"{'identical' if same else 'DIFFERS'} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError("ghost_norm disagrees with its plain "
-                                     "version")
+                                     "version, or with itself")
             worst = max(worst, float(err.max()))
     return worst
 
@@ -1072,14 +1125,15 @@ def _library_ghost(a, g):
 def ghost_bound_ms(a, g) -> tuple[float, str]:
     """Least time for one call: a and g read once and [B] float32 written,
     over the HBM rate; against the two Gram products' upper triangles (the
-    Grams are symmetric), B*S*(S+1)*(d_in+d_out) operations, over the peak
-    for the wider of the two dtypes."""
+    Grams are symmetric), B*S*(S+1)*d operations for each, over the peak
+    for its operand's dtype (GHOST_OPS_PER_S: float32 at the 3xTF32
+    rate)."""
     b, s, d_in = a.shape
     nbytes = a.numel() * a.element_size() + g.numel() * g.element_size() \
         + 4 * b
-    ops = b * s * (s + 1) * (d_in + g.shape[2])
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / min(PEAK_OPS_PER_S[a.dtype], PEAK_OPS_PER_S[g.dtype])
+    t_ops = b * s * (s + 1) * (d_in / GHOST_OPS_PER_S[a.dtype]
+                               + g.shape[2] / GHOST_OPS_PER_S[g.dtype])
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -1087,7 +1141,8 @@ def ghost_bound_ms(a, g) -> tuple[float, str]:
 def time_ghost(dev, smi) -> dict:
     """ghost_norm, its plain version and the library yardstick at every
     training shape in both dtypes; returns the GHOST_ROW_SHAPE bfloat16
-    times for the kernels line and prints each participant's sum."""
+    times for the kernels line (its float32 times are printed beside them)
+    and each participant's sums."""
     rows, per_participant = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
@@ -1125,8 +1180,15 @@ def time_ghost(dev, smi) -> dict:
             f" launches) {str(dtype)[6:]}, on {smi}: kernel "
             f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, library "
             f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms")
-    return {"row": rows[(GHOST_ROW_SHAPE, torch.bfloat16)],
-            "per_participant": per_participant}
+    bf, fp = (rows[(GHOST_ROW_SHAPE, dt)]
+              for dt in (torch.bfloat16, torch.float32))
+    say(f"times: ghost_norm at the kernels line's shape "
+        f"{GHOST_ROW_SHAPE}, on {smi}: kernel / plain / library / bound ms "
+        f"bfloat16 {bf['ms']:.4f} / {bf['plain_ms']:.4f} / "
+        f"{bf['library_ms']:.4f} / {bf['bound_ms']:.4f}, float32 "
+        f"{fp['ms']:.4f} / {fp['plain_ms']:.4f} / {fp['library_ms']:.4f} / "
+        f"{fp['bound_ms']:.4f}")
+    return {"row": bf, "per_participant": per_participant}
 
 
 def _library_flash(q, k, v):
@@ -1196,10 +1258,24 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
-def _device_profile(fn) -> tuple[float, dict, float]:
-    """``fn()`` once under ``torch.profiler``: the device's busy time (the
-    sum of every kernel's self device time) in us, that time by kernel
-    name, and the host wall time of the profiled call in ms."""
+def _union_us(spans) -> float:
+    """The time covered by (start, end) intervals, each counted once."""
+    total, end = 0.0, -math.inf
+    for start, stop in sorted(spans):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def _device_profile(fn) -> tuple[float, dict, float, list]:
+    """``fn()`` once under ``torch.profiler``: the device's busy time in us
+    (the union of its kernels' intervals, so that a kernel launched
+    programmatically dependent, which waits on the device for the one
+    before, counts once; the sum of self times where the trace has no
+    intervals), the self device time by kernel name, the host wall time of
+    the profiled call in ms, and the (name, start, end) of every device
+    event."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1212,7 +1288,13 @@ def _device_profile(fn) -> tuple[float, dict, float]:
         if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + _self_device_us(evt)
-    return sum(by_kernel.values()), by_kernel, prof_ms
+    spans = [(evt.name, evt.time_range.start, evt.time_range.end)
+             for evt in prof.events()
+             if getattr(evt, "device_type", None) ==
+             torch.autograd.DeviceType.CUDA]
+    busy = _union_us((a, b) for _, a, b in spans) if spans else \
+        sum(by_kernel.values())
+    return busy, by_kernel, prof_ms, spans
 
 
 def time_eval_forward(dev, smi, flash_ms: float) -> float:
@@ -1240,7 +1322,7 @@ def time_eval_forward(dev, smi, flash_ms: float) -> float:
             f" B=8 S=2048, on {smi}: wall {wall_ms:.2f} ms (median of 5); "
             f"flash_attention at the times phase's median: {mcfg.n_layers} x "
             f"{flash_ms:.4f} ms = {100 * share:.1f}% of it")
-        busy_us, by_kernel, prof_ms = _device_profile(
+        busy_us, by_kernel, prof_ms, _ = _device_profile(
             lambda: tf.forward(mcfg, params, batch))
     if busy_us <= 0:
         say("eval forward profile: torch.profiler recorded no device time on"
@@ -1263,7 +1345,7 @@ def profile_round(dev, smi, train, ghost) -> None:
     trained parameters, its arm built beforehand.  After a warm-up round
     (the allocator refills after the times phase), it runs once on the
     host clock and once more under ``torch.profiler``, which gives the
-    device's busy time (the sum of every kernel's device time) and
+    device's busy time (the union of its kernels' intervals) and
     ghost_norm's share of it; the device idle share is busy time against
     the unprofiled wall time.  Beside it the main-path round times and the
     kernel share that the times phase's medians imply."""
@@ -1281,10 +1363,13 @@ def profile_round(dev, smi, train, ghost) -> None:
     arms.LocalRunner().run(arm)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us, by_kernel, prof_ms = _device_profile(
+    busy_us, by_kernel, prof_ms, spans = _device_profile(
         lambda: arms.LocalRunner().run(arm_again))
-    ghost_us = sum(us for name, us in by_kernel.items()
-                   if "ghost_norm" in name)
+    # the row-sum kernel waits on the device for the tiles' grid, so the
+    # union of both kernels' intervals, not the sum of their times
+    ghost_us = _union_us((a, b) for name, a, b in spans
+                         if "ghost_norm" in name) if spans else \
+        sum(us for name, us in by_kernel.items() if "ghost_norm" in name)
     round_s = train["round_s"]
     est = {dt: TRAIN["hospitals"] * ghost["per_participant"][dt]["ms"]
            for dt in (torch.bfloat16, torch.float32)}

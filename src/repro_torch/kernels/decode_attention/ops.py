@@ -27,7 +27,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, sm_count
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 
 SOURCE = "decode_attention"
@@ -61,12 +61,6 @@ def _launcher():
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.cache
-def sm_count(device: torch.device) -> int:
-    """SMs of a CUDA device (an H100 SXM has 132)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def split_plan(b: int, l: int, kv: int, sms: int) -> tuple[int, int]:

@@ -23,11 +23,18 @@ import threading
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, sm_count
 from repro_torch.kernels.ghost_norm.ref import ghost_norm_ref
 
 SOURCE = "ghost_norm"
 TILE = 64                                        # kTile in the source
+THREADS = 128                                    # kThreads in the source
+CHUNK_BYTES = 128                                # kChunkBytes in the source
+# split_plan: share a tile pair's chunks among blocks until the grid holds
+# about BLOCKS_PER_SM blocks per SM, each block keeping MIN_CHUNKS chunks
+BLOCKS_PER_SM = 4
+MIN_CHUNKS = 16
+MAX_SPLIT = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
 _MAX_GRID_Y = 65535
@@ -51,10 +58,50 @@ def reset_launches() -> None:
 @functools.cache
 def _launcher():
     fn = _build.load(SOURCE).ghost_norm_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def split_plan(b: int, s: int, d_in: int, d_out: int, a_size: int,
+               g_size: int, sms: int) -> int:
+    """How many blocks share each tile pair's chunks of 128 bytes per row
+    (a's, then g's) for a [b, s, d_in] of ``a_size``-byte elements and g
+    [b, s, d_out] of ``g_size``-byte ones on a card of ``sms`` SMs: a power
+    of two, doubled while the grid holds fewer than BLOCKS_PER_SM * sms
+    blocks and every block keeps at least MIN_CHUNKS chunks.  Shapes and
+    the card only."""
+    n_tiles = -(-s // TILE)
+    units = b * n_tiles * (n_tiles + 1) // 2
+    chunks = -(-d_in * a_size // CHUNK_BYTES) + -(-d_out * g_size
+                                                    // CHUNK_BYTES)
+    split = 1
+    while (split < MAX_SPLIT and units * split < BLOCKS_PER_SM * sms
+           and chunks >= 2 * split * MIN_CHUNKS):
+        split *= 2
+    return split
+
+
+def _query(fn_name: str, a_dtype: torch.dtype, g_dtype: torch.dtype) -> int:
+    fn = getattr(_build.load(SOURCE), fn_name)
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    n = fn(_DTYPE_CODES[a_dtype], _DTYPE_CODES[g_dtype])
+    if n < 0:
+        raise RuntimeError(f"{fn_name} failed with CUDA error {-n}")
+    return n
+
+
+def smem_bytes(a_dtype: torch.dtype, g_dtype: torch.dtype) -> int:
+    """The tile kernel's dynamic shared memory per block, in bytes, for a
+    in ``a_dtype`` and g in ``g_dtype`` (builds the kernel if needed)."""
+    return _query("ghost_norm_smem_bytes", a_dtype, g_dtype)
+
+
+def blocks_per_sm(a_dtype: torch.dtype, g_dtype: torch.dtype) -> int:
+    """Tile-kernel blocks that stay resident on one SM of the current card
+    for a in ``a_dtype`` and g in ``g_dtype``."""
+    return _query("ghost_norm_blocks_per_sm", a_dtype, g_dtype)
 
 
 def ghost_norm_blocked(a: torch.Tensor, g: torch.Tensor,
@@ -119,14 +166,21 @@ def ghost_norm(a: torch.Tensor, g: torch.Tensor, *,
     _check_kernel(a, g)
     b, s, d_in = a.shape
     n_tiles = -(-s // TILE)
-    partial = torch.empty((b, n_tiles * (n_tiles + 1) // 2),
+    n_pairs = n_tiles * (n_tiles + 1) // 2
+    split = split_plan(b, s, d_in, g.shape[2], a.element_size(),
+                       g.element_size(), sm_count(a.device))
+    partial = torch.empty((b, n_pairs), dtype=torch.float32, device=a.device)
+    # each block's two partial Grams where blocks share a tile pair
+    scratch = torch.empty((b, n_pairs, split, 2, 32, THREADS)
+                          if split > 1 else (0,),
                           dtype=torch.float32, device=a.device)
     out = torch.empty((b,), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         err = _launcher()(
-            a.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            b, s, d_in, g.shape[2], _DTYPE_CODES[a.dtype],
-            _DTYPE_CODES[g.dtype], torch.cuda.current_stream().cuda_stream)
+            a.data_ptr(), g.data_ptr(), partial.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), b, s, d_in, g.shape[2],
+            _DTYPE_CODES[a.dtype], _DTYPE_CODES[g.dtype], split,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ghost_norm kernel launch failed with CUDA "
                            f"error {err}")

@@ -14,8 +14,9 @@ terms, and differ by the output's rounding, a few ulps;
 ``tests/test_kernels.py``'s 3e-2 is as large as a long row's typical
 output);
 ``ghost_norm`` at rtol 1e-5, with a and g in one dtype or in two (as a
-training round meets them) — the kernel and the plain version both sum in
-float32 over the same inputs, in other orders.
+training round meets them) — the kernel (bf16 products, float32 ones as
+3xTF32 on the tensor cores) and the plain version both sum in float32
+over the same inputs, in other orders.
 """
 
 import pytest
@@ -50,18 +51,35 @@ GHOST_DTYPES = [pytest.param(("float32", "float32"), id="float32"),
                 pytest.param(("float32", "bfloat16"), id="float32-bfloat16")]
 
 
+def _ghost_inputs(dev, b, s, din, dout, dtype, offset=0):
+    """a and g at tests/test_kernels.py's scales, each starting ``offset``
+    elements into its buffer."""
+    g_ = torch.Generator(device=dev).manual_seed(b * s + din)
+    out = []
+    for shape, scale, dt in (((b, s, din), 0.5, dtype[0]),
+                             ((b, s, dout), 0.1, dtype[1])):
+        x = (scale * torch.randn(shape, generator=g_, device=dev)).to(
+            DTYPES[dt])
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        out.append(buf[offset:].view(shape).copy_(x))
+    return out
+
+
+# the test_kernels.py shapes, ragged S, widths of one 32-byte K-step (16
+# bf16, 8 float32 columns) and rows that are not 16-byte multiples (100,
+# 70 and 33 columns), then SmolLM-360M's training shapes (q/o, k/v, up/gate
+# and down projections)
 @pytest.mark.parametrize("dtype", GHOST_DTYPES)
 @pytest.mark.parametrize("b,s,din,dout", [(2, 64, 32, 16), (1, 96, 48, 48),
                                           (3, 128, 64, 8), (2, 32, 16, 16),
                                           (4, 300, 100, 70),
+                                          (2, 100, 33, 37), (2, 64, 8, 16),
                                           (16, 256, 960, 960),
-                                          (16, 256, 960, 320)])
+                                          (16, 256, 960, 320),
+                                          (16, 256, 960, 2560),
+                                          (16, 256, 2560, 960)])
 def test_ghost_norm_kernel_matches_plain(dev, b, s, din, dout, dtype):
-    g_ = torch.Generator(device=dev).manual_seed(b * s + din)
-    a = (0.5 * torch.randn((b, s, din), generator=g_, device=dev)).to(
-        DTYPES[dtype[0]])
-    g = (0.1 * torch.randn((b, s, dout), generator=g_, device=dev)).to(
-        DTYPES[dtype[1]])
+    a, g = _ghost_inputs(dev, b, s, din, dout, dtype)
     before = ghost_ops.launches()
     out = ghost_ops.ghost_norm(a, g)
     assert ghost_ops.launches() == before + 1
@@ -69,6 +87,45 @@ def test_ghost_norm_kernel_matches_plain(dev, b, s, din, dout, dtype):
                                rtol=1e-5, atol=1e-5)
     # the same inputs give the same norms, bit for bit (no atomics)
     assert torch.equal(out, ghost_ops.ghost_norm(a, g))
+
+
+@pytest.mark.parametrize("dtype", GHOST_DTYPES)
+@pytest.mark.parametrize("b,s,din,dout", [(1, 64, 4096, 4096),
+                                          (2, 130, 960, 2560),
+                                          (1, 200, 3000, 777)])
+def test_ghost_norm_kernel_split_matches_plain(dev, b, s, din, dout, dtype):
+    """Few tile pairs over wide rows: several blocks share each pair's
+    chunks, and a third kernel adds their Grams in a fixed order."""
+    a, g = _ghost_inputs(dev, b, s, din, dout, dtype)
+    assert ghost_ops.split_plan(b, s, din, dout, a.element_size(),
+                                g.element_size(),
+                                ghost_ops.sm_count(dev)) > 1
+    out = ghost_ops.ghost_norm(a, g)
+    torch.testing.assert_close(out, ghost_ops.ghost_norm_blocked(a, g),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, ghost_ops.ghost_norm(a, g))
+
+
+@pytest.mark.parametrize("dtype", GHOST_DTYPES)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_ghost_norm_kernel_at_unaligned_addresses(dev, offset, dtype):
+    """a and g that start off a 16-byte address (a non-zero storage offset)
+    take the kernel's narrower copies, with the same results."""
+    a, g = _ghost_inputs(dev, 2, 128, 64, 48, dtype, offset=offset)
+    assert a.storage_offset() == g.storage_offset() == offset
+    out = ghost_ops.ghost_norm(a, g)
+    torch.testing.assert_close(out, ghost_ops.ghost_norm_blocked(a, g),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, ghost_ops.ghost_norm(a, g))
+
+
+def test_ghost_norm_kernel_fills_the_card(dev):
+    """As many tile blocks stay resident per SM as the kernel is built for:
+    3 with both operands in bf16, 4 with a float32 one (so S = 256's 160
+    tile pairs of B = 16 run in one wave on 132 SMs, split or not)."""
+    for a_dt, g_dt in (p.values[0] for p in GHOST_DTYPES):
+        want = 3 if a_dt == g_dt == "bfloat16" else 4
+        assert ghost_ops.blocks_per_sm(DTYPES[a_dt], DTYPES[g_dt]) >= want
 
 
 def test_ghost_norm_kernel_refuses_non_contiguous_inputs(dev):

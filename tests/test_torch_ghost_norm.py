@@ -9,6 +9,15 @@ blocked plain version, so these tests check the algorithm and the
 dispatch; ``chip_smoke.py`` holds the CUDA kernel against the plain version
 on the card, and ``tests/test_torch_cuda.py`` does the same under
 ``pytest -m cuda`` there.
+
+The CUDA kernel runs both Grams on tensor cores: bf16 products, and float32
+as three TF32 products (3xTF32).  ``ghost_norm_tensor_core_plain`` repeats
+that arithmetic in plain PyTorch (TF32 rounding by integer bit operations,
+float32 accumulators over the kernel's K-steps), and the tests below show
+it inside the limits the kernel is held to — rtol 1e-5 against the plain
+version (``tests/test_torch_cuda.py``), rtol 1e-4 (``chip_smoke.py``) and
+2e-5 against the JAX oracle — at the training scales, while one TF32
+product falls outside them.
 """
 
 import jax.numpy as jnp
@@ -19,7 +28,8 @@ import torch
 from repro.kernels.ghost_norm.kernel import ghost_norm_pallas
 from repro.kernels.ghost_norm.ref import ghost_norm_ref as jax_ghost_norm_ref
 from repro_torch.kernels.ghost_norm import ops
-from repro_torch.kernels.ghost_norm.ref import ghost_norm_ref
+from repro_torch.kernels.ghost_norm.ref import (
+    ghost_norm_ref, ghost_norm_tensor_core_plain, tf32_round)
 
 torch.set_num_threads(1)
 
@@ -124,3 +134,114 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         a, g = torch.zeros(2, 0, 4), torch.zeros(2, 0, 3)
     with pytest.raises((ValueError, TypeError)):
         ops.ghost_norm(a, g)
+
+
+# -- the kernel's tensor-core arithmetic ----------------------------------------
+
+# (a dtype, g dtype): every pair the kernel takes
+PAIRS = [("float32", "float32"), ("bfloat16", "bfloat16"),
+         ("bfloat16", "float32"), ("float32", "bfloat16")]
+
+
+def _unit_inputs(b, s, din, dout, dtypes, seed=0):
+    """The training scales: activations of unit scale, cotangents scaled so
+    each example's norm^2 is about 1; each rounded through its dtype."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((b, s, din)).astype(np.float32)
+    g = (rng.standard_normal((b, s, dout))
+         / np.sqrt(s * din * dout)).astype(np.float32)
+    return _torch(a, "float32").to(_TORCH[dtypes[0]]), \
+        _torch(g, "float32").to(_TORCH[dtypes[1]])
+
+
+def _within(out, ref, rtol, atol) -> bool:
+    return bool(torch.all((out - ref).abs() <= atol + rtol * ref.abs()))
+
+
+@pytest.mark.parametrize("x,want", [
+    (1.0, 1.0),
+    (1 + 2**-12, 1.0),                             # below half: down
+    (1 + 2**-11, 1 + 2**-10),                      # a tie: away from zero
+    (-(1 + 2**-11), -(1 + 2**-10)),
+    (1 + 2**-10 + 2**-11, 1 + 2**-9),              # a tie from an odd value
+    (1 + 2**-10 + 2**-12, 1 + 2**-10),
+    (3.0 * 2**-130, 3.0 * 2**-130),                # subnormal, 2 bits wide
+])
+def test_tf32_round_is_round_to_nearest_ties_away(x, want):
+    out = tf32_round(torch.tensor([x], dtype=torch.float32))
+    assert out.item() == want
+    assert out.view(torch.int32).item() & 0x1FFF == 0
+
+
+@pytest.mark.parametrize("dtypes", PAIRS, ids="-".join)
+@pytest.mark.parametrize("b,s,din,dout,bs,bt", SHAPES)
+def test_tensor_core_arithmetic_meets_the_limits(b, s, din, dout, bs, bt,
+                                                 dtypes):
+    """bf16 products and 3xTF32 float32 products, added in float32 over the
+    K-steps, stay inside every limit the kernel is held to."""
+    a, g = _unit_inputs(b, s, din, dout, dtypes)
+    out = ghost_norm_tensor_core_plain(a, g)
+    plain = ops.ghost_norm_blocked(a, g)
+    torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-5)
+    assert _within(out, plain, 1e-4, 1e-6)
+    oracle = np.asarray(jax_ghost_norm_ref(jnp.asarray(a.float().numpy()),
+                                           jnp.asarray(g.float().numpy())))
+    np.testing.assert_allclose(out.numpy(), oracle, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("din,dout", [(8, 8), (8, 16), (16, 16)])
+def test_tensor_core_arithmetic_at_one_k_step(din, dout):
+    """Widths of exactly one K-step (8 float32, 16 bf16 columns)."""
+    for dtypes in PAIRS:
+        a, g = _unit_inputs(2, 64, din, dout, dtypes, seed=din + dout)
+        torch.testing.assert_close(ghost_norm_tensor_core_plain(a, g),
+                                   ops.ghost_norm_blocked(a, g), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_one_tf32_product_misses_the_limits():
+    """A single TF32 product keeps ~2^-11 of each input: on the test_kernels
+    shapes in float32 it falls outside the card's rtol 1e-5 and the JAX
+    limit, where 3xTF32 stays inside on every one."""
+    missed = []
+    for b, s, din, dout, _, _ in SHAPES:
+        a, g = _unit_inputs(b, s, din, dout, ("float32", "float32"))
+        plain = ops.ghost_norm_blocked(a, g)
+        one = ghost_norm_tensor_core_plain(a, g, tf32_terms=1)
+        three = ghost_norm_tensor_core_plain(a, g, tf32_terms=3)
+        assert _within(three, plain, 1e-5, 1e-5)
+        if not _within(one, plain, 1e-5, 1e-5):
+            missed.append((b, s, din, dout))
+            assert not _within(one, ghost_norm_ref(a, g), 2e-5, 2e-5)
+    assert len(missed) >= 2, missed
+
+
+# split_plan on an H100 (132 SMs) at the training shapes (B=16, S=256):
+# (d_in, d_out) -> (bf16 split, float32 split)
+H100_SMS = 132
+TRAIN_SPLITS = {(960, 960): (1, 2), (960, 320): (1, 2), (960, 2560): (2, 4),
+                (2560, 960): (2, 4), (960, 49152): (4, 4)}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("din,dout", list(TRAIN_SPLITS))
+def test_split_plan_comes_from_shapes(din, dout, dtype):
+    """Blocks per tile pair: a power of two, doubled while the grid is
+    under BLOCKS_PER_SM blocks per SM and each block keeps MIN_CHUNKS
+    chunks of 128 bytes a row; from the shapes and the SM count only."""
+    size = _TORCH[dtype].itemsize
+    split = ops.split_plan(16, 256, din, dout, size, size, H100_SMS)
+    assert split == TRAIN_SPLITS[(din, dout)][dtype == "float32"]
+    chunks = -(-din * size // ops.CHUNK_BYTES) + \
+        -(-dout * size // ops.CHUNK_BYTES)
+    assert split & (split - 1) == 0 and split <= ops.MAX_SPLIT
+    assert split == 1 or chunks // split >= ops.MIN_CHUNKS
+    assert split == 1 or 160 * split // 2 < ops.BLOCKS_PER_SM * H100_SMS
+
+
+def test_split_plan_spares_a_full_card():
+    """A grid that already fills the card, or rows too short to share, is
+    not split."""
+    assert ops.split_plan(64, 1024, 960, 2560, 2, 2, H100_SMS) == 1
+    assert ops.split_plan(1, 64, 16, 16, 4, 4, H100_SMS) == 1
+    assert ops.split_plan(1, 64, 4096, 4096, 4, 4, H100_SMS) == ops.MAX_SPLIT
