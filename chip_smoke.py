@@ -50,7 +50,10 @@ script exits non-zero, printing no result:
      4 ``token_silos`` hospitals (64 sequences of 256 tokens each, batch
      16, sigma 1.0) with ghost clipping: 3 rounds complete, the losses are
      finite, ε is the accountant's, one program call per round, and
-     ``ghost_norm`` launches 225 times per participant and round;
+     ``ghost_norm`` launches 225 times per participant and round; every
+     round is published by a ``CheckpointPublisher(keep_last=2)`` on
+     ``on_round`` (the round wall times exclude it; its time per round and
+     the file size are printed);
   7. train whole path — one sigma = 0 round in float32 with the kernel and
      one with the plain ghost norm: the norms agree at rtol 1e-4 and the
      two rounds' updates (trained - initial parameters) within 1e-5 in L2;
@@ -80,7 +83,20 @@ script exits non-zero, printing no result:
      round's device busy time and ``ghost_norm`` share, the wall time of
      one evaluation forward and the flash kernel's share of it, and a
      profiled evaluation forward's device busy time, idle share and top
-     device ops.
+     device ops;
+ 12. hot swap — a float32 ``ServeEngine`` (SmolLM-360M, untied head, full
+     width, 8 slots x 512, the decode kernel, greedy) starts from seeded
+     weights at round -1, admits 4 requests and steps; ``poll_watcher``
+     swaps in the newest round phase 6 published (the last one), without
+     reallocating the KV cache, and the swapped parameters must be phase
+     6's final ones bit for bit; the in-flight requests finish their full
+     budget, and 4 requests admitted after the swap emit the greedy tokens
+     of an engine built directly from phase 6's parameters (same slots,
+     same steps); then ``run_open_loop`` with the watcher serves a seeded
+     trace, every request completes, and every step samples
+     ``latest_round`` = ``serving_round`` = the last round; prints the
+     load-and-swap time, and the publish and the load in their parts
+     (copy to the host, write, read and decode, copy to the card).
 
 The next-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
@@ -96,6 +112,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -124,10 +141,23 @@ from repro_torch.kernels.ghost_norm.ops import ghost_norm_blocked  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve.federation import token_silos, transformer_model  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.convert import params_from_tree, params_to_tree  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serve.engine import ServeConfig, ServeEngine, batch_generate  # noqa: E402
+from repro_torch.serve.handoff import (  # noqa: E402
+    CheckpointPublisher,
+    CheckpointWatcher,
+    checkpoint_path,
+    list_rounds,
+)
 from repro_torch.serve.metrics import summarize  # noqa: E402
-from repro_torch.serve.traffic import TrafficConfig, generate_requests, run_open_loop  # noqa: E402
+from repro_torch.serve.traffic import (  # noqa: E402
+    Request,
+    TrafficConfig,
+    generate_requests,
+    run_open_loop,
+)
 
 ARCH = "smollm-360m"
 SEED = 0
@@ -665,9 +695,10 @@ def _silos(mcfg):
                        seed=SEED)
 
 
-def train_main_path(dev, smi) -> dict:
-    """DeCaPH rounds with ghost clipping at full width; returns the
-    ghost_norm launches of the run and its round wall times."""
+def train_main_path(dev, smi, ckpt_dir: str) -> dict:
+    """DeCaPH rounds with ghost clipping at full width, each round published
+    into ``ckpt_dir``; returns the ghost_norm launches of the run and its
+    round wall times (without the publishing)."""
     mcfg = get_config(ARCH).replace(tie_embeddings=False)
     if param_count(mcfg) != TRAIN_PARAMS:
         raise AssertionError(f"{param_count(mcfg)} parameters, expected "
@@ -675,12 +706,17 @@ def train_main_path(dev, smi) -> dict:
     model = transformer_model(mcfg, device=str(dev))
     silos = _silos(mcfg)
     cfg = _train_cfg(TRAIN["rounds"], TRAIN["sigma"])
-    marks, dtypes = [], []
+    publisher = CheckpointPublisher(
+        ckpt_dir, keep_last=2, metadata={"arm": "decaph", "arch": mcfg.name})
+    marks, resumes, publish_ms, dtypes = [], [], [], []
 
     def on_round(t, params):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         dtypes.append(sorted({str(p.dtype)[6:] for p in tree_leaves(params)}))
+        publisher.publish(t, params)       # D2H copy + write + rename
+        resumes.append(time.perf_counter())
+        publish_ms.append((resumes[-1] - marks[-1]) * 1e3)
 
     torch.cuda.reset_peak_memory_stats()
     ghost_ops.reset_launches()
@@ -724,7 +760,14 @@ def train_main_path(dev, smi) -> dict:
                              f"expected {per_participant} x "
                              f"{TRAIN['hospitals']} participants x "
                              f"{TRAIN['rounds']} rounds = {expected}")
-    round_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    round_s = [b - a for a, b in zip([t0] + resumes[:-1], marks)]
+    if publisher.published != list(range(TRAIN["rounds"])):
+        raise AssertionError(f"published rounds {publisher.published}")
+    last = TRAIN["rounds"] - 1
+    if list_rounds(ckpt_dir) != [last - 1, last]:
+        raise AssertionError(f"rounds on disk {list_rounds(ckpt_dir)}, "
+                             f"expected the last two (keep_last=2)")
+    size = Path(checkpoint_path(ckpt_dir, last)).stat().st_size
     say(f"train main path: {ARCH} untied head, {TRAIN_PARAMS:,} parameters "
         f"(+ {norm_scales:,} norm scales), full"
         f" width, {TRAIN['hospitals']} hospitals x {TRAIN['n_per']} x "
@@ -738,8 +781,13 @@ def train_main_path(dev, smi) -> dict:
         f"wall s {[round(x, 4) for x in round_s]}, parameter dtypes after "
         f"each round {dtypes}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    say(f"train publish: CheckpointPublisher.publish per round (D2H copy + "
+        f"write + rename), ms {[round(x, 2) for x in publish_ms]} on {smi}")
+    say(f"train publish: checkpoint file {size:,} bytes "
+        f"({size / 2**30:.3f} GiB) per round")
     return {"launches": launches, "round_s": round_s, "model": model,
-            "silos": silos, "params": report.params}
+            "silos": silos, "params": report.params,
+            "publish_ms": publish_ms, "ckpt_bytes": size}
 
 
 def _update_l2(initial, a, b) -> tuple[float, float]:
@@ -1436,6 +1484,162 @@ def time_decode_step(engine, smi, position: int = SERVE_POSITION) -> None:
         f"{100 * mcfg.n_layers * kernel_ms / step_ms:.1f}% of the device step")
 
 
+# -- 12. hot swap: phase 6's published rounds into a serving engine --------------
+
+
+def _run_slots(engine, first, later, swap_after: int, watcher=None):
+    """Admit ``first``, step ``swap_after`` times, then (with a watcher)
+    poll it once, admit ``later`` and step until every request is done.
+    Returns the poll's wall time in ms (None without a watcher)."""
+    for r in first:
+        if engine.admit(r):
+            raise AssertionError(f"request {r.rid} ended at admission")
+    for _ in range(swap_after):
+        engine.step()
+    swap_ms = None
+    if watcher is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        swapped = engine.poll_watcher(watcher)
+        torch.cuda.synchronize()
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        if not swapped:
+            raise AssertionError("poll_watcher found no round to swap in")
+    for r in later:
+        if engine.admit(r):
+            raise AssertionError(f"request {r.rid} ended at admission")
+    while engine.busy():
+        engine.step()
+    return swap_ms
+
+
+def _identical(a, b) -> bool:
+    """Two parameter trees with the same keys, dtypes, shapes and bits."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _identical(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        torch.equal(a, b))
+
+
+def hot_swap_path(dev, smi, train, ckpt_dir: str) -> int:
+    """Serve phase 6's published rounds: a float32 engine at round -1 swaps
+    in the newest one mid-stream; returns the decode kernel's launches on
+    that engine (the directly built engine it is held against runs first
+    and does not count)."""
+    mcfg = get_config(ARCH).replace(tie_embeddings=False,
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+    scfg = ServeConfig(arch=ARCH, smoke=False, slots=8, max_len=512,
+                       temperature=0.0, seed=SEED, device=str(dev))
+    last = list_rounds(ckpt_dir)[-1]
+    if last != TRAIN["rounds"] - 1:
+        raise AssertionError(f"newest published round {last}")
+    final = train["params"]
+    rng = np.random.default_rng(SEED + 12)
+    prompts = rng.integers(0, mcfg.vocab_size, (8, 16)).astype(np.int32)
+    budget, swap_after = 24, 4
+
+    def requests(rows, start):
+        return [Request(rid=start + i, arrival=0.0, prompt=prompts[i],
+                        max_new_tokens=budget) for i in rows]
+
+    # the yardstick: an engine built directly from phase 6's parameters,
+    # the same requests in the same slots at the same steps
+    direct = ServeEngine(scfg, model_cfg=mcfg, params=final)
+    want = requests(range(4, 8), 4)
+    _run_slots(direct, requests(range(4), 0), want, swap_after)
+    del direct
+
+    engine = ServeEngine(scfg, model_cfg=mcfg)      # seeded, round -1
+    cache = {k: v.data_ptr() for k, v in engine.cache.items()}
+    trace = generate_requests(TrafficConfig(rate=16, n_requests=16,
+                                            vocab_size=mcfg.vocab_size,
+                                            seed=SEED + 12))
+    watcher = CheckpointWatcher(ckpt_dir)
+    inflight, later = requests(range(4), 0), requests(range(4, 8), 4)
+    decode_ops.reset_launches()
+    swap_ms = _run_slots(engine, inflight, later, swap_after, watcher)
+    result = run_open_loop(engine, trace, watcher=watcher)
+    launches = decode_ops.launches()
+
+    if engine.serving_round != last or engine.swaps != 1:
+        raise AssertionError(f"serving round {engine.serving_round} after "
+                             f"{engine.swaps} swaps, expected {last} after 1")
+    if {k: v.data_ptr() for k, v in engine.cache.items()} != cache:
+        raise AssertionError("the swap reallocated the KV cache")
+    if not _identical(engine.params, final):
+        raise AssertionError("the swapped parameters are not phase 6's "
+                             "final ones bit for bit")
+    short = [r.rid for r in inflight + later if len(r.tokens) != budget]
+    if short:
+        raise AssertionError(f"requests {short} ended short of their budget")
+    if any(r.round_at_first != -1 for r in inflight) or \
+            any(r.round_at_first != last for r in later):
+        raise AssertionError("a request's first token came from the wrong "
+                             "round")
+    mismatched = [r.rid for r, w in zip(later, want) if r.tokens != w.tokens]
+    if mismatched:
+        raise AssertionError(f"greedy tokens after the swap differ from the "
+                             f"directly built engine's for {mismatched}")
+    done = sorted(r.rid for r in result.completed)
+    if done != [r.rid for r in trace] or \
+            any(len(r.tokens) != r.max_new_tokens for r in result.completed):
+        raise AssertionError(f"{len(done)} of {len(trace)} watched requests "
+                             "completed their budget")
+    if not result.steps or any(
+            (st.latest_round, st.serving_round) != (last, last)
+            for st in result.steps) or result.swaps:
+        raise AssertionError("the watched run did not serve the last round "
+                             "throughout")
+    positions = engine.decode_steps + sum(
+        len(r.prompt) for r in inflight + later + trace)
+    if launches != mcfg.n_layers * positions:
+        raise AssertionError(f"decode_attention launched {launches} times, "
+                             f"expected {mcfg.n_layers} x {positions} "
+                             "positions")
+    row = summarize(result, slots=8, rate=16)
+    say(f"hot swap: {ARCH} untied head, full width float32, 8 slots x 512, "
+        f"greedy: round -1 -> {last} after {swap_after} steps with 4 requests"
+        f" in flight (each finished its {budget} tokens); swapped parameters "
+        f"= phase 6's bit for bit; 4 requests admitted after the swap = the "
+        f"directly built engine's tokens; watched trace of {len(trace)} "
+        f"requests: all completed, latest_round = serving_round = {last} at "
+        f"all {len(result.steps)} steps, {row['throughput_tok_s']} tok/s; "
+        f"decode_attention launches {launches}")
+    say(f"hot swap: load-and-swap (poll_watcher: read "
+        f"{Path(checkpoint_path(ckpt_dir, last)).stat().st_size:,} bytes, "
+        f"decode, copy to the card) {swap_ms:.2f} ms on {smi}")
+    time_handoff(dev, smi, final, checkpoint_path(ckpt_dir, last))
+    return launches
+
+
+def time_handoff(dev, smi, params, path: str) -> None:
+    """The publish and the load-and-swap in their parts, on the host clock
+    (each synchronised): the parameters' copy to the host, the file's
+    write from host tensors, the file's read and decode, and the copy of
+    its tree to the card."""
+    ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    host = timed("D2H copy", lambda: tree_map(
+        lambda t: t.cpu(), params_to_tree(params)))
+    spare = str(Path(path).with_name("timed.msgpack"))
+    timed("write", lambda: save_checkpoint(spare, host, step=0))
+    Path(spare).unlink()
+    tree, _, _ = timed("read + decode", lambda: load_checkpoint(path))
+    timed("H2D copy", lambda: params_from_tree(tree, dev))
+    say(f"handoff parts: {', '.join(f'{k} {v:.2f} ms' for k, v in ms.items())}"
+        f" ({Path(path).stat().st_size:,} bytes) on {smi}")
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -1454,7 +1658,8 @@ def main() -> int:
     del engine
     whole_path(dev)
     torch.cuda.empty_cache()
-    train = train_main_path(dev, smi)
+    ckpt = tempfile.TemporaryDirectory(prefix="ckpt-", dir=ROOT / "build")
+    train = train_main_path(dev, smi, ckpt.name)
     launches["ghost_norm"] = train["launches"]
     train_whole_path(dev, train["silos"])
     torch.cuda.empty_cache()
@@ -1476,6 +1681,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     times["flash_attention"] = time_flash(dev, smi)
     time_eval_forward(dev, smi, times["flash_attention"]["ms"])
+    torch.cuda.empty_cache()
+    launches["decode_attention"] += hot_swap_path(dev, smi, train, ckpt.name)
+    ckpt.cleanup()
     lines = [{**k, "launches": launches[k["name"]],
               "max_abs_err": worst[k["name"]], **times[k["name"]]}
              for k in KERNELS]

@@ -32,9 +32,12 @@ CLIPPING_MODES = ("auto", "ghost", "per-example")
 @dataclasses.dataclass(frozen=True)
 class GhostCapability:
     """Attached to ``Model.ghost`` when the ghost clipping path is exact:
-    ``cfg`` is the transformer ModelConfig the ghost forward runs."""
+    ``cfg`` is the transformer ModelConfig the ghost forward runs;
+    ``chunk_size`` bounds residual-activation memory (None = the whole silo
+    batch in one chunk)."""
 
     cfg: Any
+    chunk_size: int | None = None
 
 
 def resolve(model, cfg) -> str:
@@ -90,7 +93,8 @@ def clipped_grad_sum_fn(model, cfg, pad: int) -> Callable:
     def ghost(params, batch, mask):
         gbatch = {"tokens": batch["x"].long(), "labels": batch["y"].long()}
         grads, loss, _norms = ghost_lib.ghost_clipped_grad_sum(
-            cap.cfg, params, gbatch, clip_norm=cfg.dp.clip_norm, mask=mask)
+            cap.cfg, params, gbatch, clip_norm=cfg.dp.clip_norm,
+            chunk_size=cap.chunk_size, mask=mask)
         return grads, loss
 
     return ghost

@@ -197,10 +197,14 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     k_cache, v_cache = cache["k"], cache["v"]
-    q = _split_heads(x @ p["wq"], h, hd)
-    k_new = _split_heads(x @ p["wk"], kv, hd)
-    v_new = _split_heads(x @ p["wv"], kv, hd)
+    q = _split_heads(matmul(x, p["wq"]), h, hd)
+    k_new = _split_heads(matmul(x, p["wk"]), kv, hd)
+    v_new = _split_heads(matmul(x, p["wv"]), kv, hd)
     q, k_new = rope(q, k_new, index[:, None], cfg)             # pos [B,1]
+    # attention runs in the cache's dtype (the kernel takes one dtype):
+    # a no-op unless float32 parameters promoted the products above a
+    # bfloat16 compute dtype, a pair the reference refuses to decode
+    q = q.to(k_cache.dtype)
     rows = (torch.arange(b, device=x.device), index.long())
     k_cache.index_put_(rows, k_new[:, 0].to(k_cache.dtype))
     v_cache.index_put_(rows, v_new[:, 0].to(v_cache.dtype))
@@ -214,5 +218,5 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
             ok &= kj > pos - window
         mask = torch.where(ok, 0.0, NEG_INF)[:, None, None, :]  # [B,1,1,L]
         out = _sdpa(q, k_cache, v_cache, mask)
-    y = out.reshape(b, 1, h * hd) @ p["wo"]
+    y = matmul(out.reshape(b, 1, h * hd), p["wo"])
     return y, cache

@@ -171,8 +171,9 @@ def decode_step_positions(cfg, params: dict, cache: dict,
                           ) -> tuple[torch.Tensor, dict]:
     """Per-slot decode: row b of ``tokens`` [B,1] is written at cache
     position ``positions[b]`` (int32 [B]) and attends to positions up to
-    it — the continuous-batching step (DESIGN.md §9).  Returns logits
-    [B,1,V] in the compute dtype and the cache, updated in place."""
+    it — the continuous-batching step (DESIGN.md §9).  Products promote as
+    ``forward``'s do.  Returns logits [B,1,V] (in the compute dtype unless
+    the parameters are wider) and the cache, updated in place."""
     emb = params["embed"]
     x = emb[tokens].to(cfg.cdtype)
     stacked = params["layers"]
@@ -185,7 +186,7 @@ def decode_step_positions(cfg, params: dict, cache: dict,
         h = rmsnorm(x, p["norm2"])
         x = x + ffn_apply(p, h, cfg.ffn_kind)
     x = rmsnorm(x, params["final_norm"])
-    return x @ head_of(cfg, params).to(cfg.cdtype), cache
+    return matmul(x, head_of(cfg, params).to(cfg.cdtype)), cache
 
 
 def decode_step(cfg, params: dict, cache: dict, tokens: torch.Tensor,

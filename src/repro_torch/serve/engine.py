@@ -26,9 +26,14 @@ reference's ``use_decode_kernel`` routes it through its Pallas kernel.
 
 Sampling runs on the last logits in float32: argmax at temperature 0,
 else Gumbel-max (what ``jax.random.categorical`` does) with uniforms from
-the engine's ``torch.Generator`` on the device.  The reference's
-checkpoint hot-swap (``poll_watcher``) waits for the checkpoint slice;
-``set_params`` swaps weights between steps.
+the engine's ``torch.Generator`` on the device.
+
+Params are just an argument to the decode call: hot-swapping a newly
+published federation checkpoint (``poll_watcher`` with a
+``handoff.CheckpointWatcher``) between steps changes no shapes and never
+touches the KV cache — in-flight generations simply continue under the
+new weights.  A swapped-in tree keeps its file's dtypes (float32 after a
+DeCaPH round), as the reference's does.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 
 import repro_torch.obs as obs
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.convert import params_from_tree
 from repro_torch.device import resolve_device
 from repro_torch.instrument import instrumented
 from repro_torch.models import transformer as tf
@@ -144,15 +150,24 @@ class ServeEngine:
         # does not wait for the device
         return torch.from_numpy(a).to(self.device, non_blocking=True)
 
-    # -- params ---------------------------------------------------------------
+    # -- params / handoff -----------------------------------------------------
 
     def set_params(self, params: dict, round_idx: int) -> None:
-        """Swap weights between decode steps.  In-flight generations keep
-        their KV cache and continue under the new params."""
+        """Hot-swap weights between decode steps.  In-flight generations
+        keep their KV cache and continue under the new params."""
         self.params = params
         self.serving_round = round_idx
         self.swaps += 1
         obs.counter("serve.swaps", 1, round=round_idx)
+
+    def poll_watcher(self, watcher) -> bool:
+        """Swap in the newest published checkpoint, if any.  True on swap."""
+        got = watcher.poll()
+        if got is None:
+            return False
+        tree, round_idx, _meta = got
+        self.set_params(params_from_tree(tree, self.device), round_idx)
+        return True
 
     # -- slot lifecycle -------------------------------------------------------
 

@@ -11,8 +11,9 @@ come from a small discrete bucket set.
 time: arrivals enter an admission queue, the queue drains into free slots,
 and the engine decodes as fast as it can (open loop: the arrival process
 never waits for the server, which is what makes p99 TTFT meaningful under
-overload).  The reference's checkpoint-watcher polling is left out until
-checkpoints are ported; ``StepSample.latest_round`` stays -1.
+overload).  Between steps it polls a ``CheckpointWatcher`` for newly
+published federation rounds and samples slot occupancy and checkpoint
+staleness for the freshness trajectory.
 """
 
 from __future__ import annotations
@@ -83,7 +84,7 @@ class StepSample:
     n_active: int                  # occupied slots during the step
     queue_depth: int
     serving_round: int
-    latest_round: int              # newest published round (-1: none)
+    latest_round: int              # newest published round at last poll
 
     @property
     def rounds_behind(self) -> int:
@@ -107,21 +108,27 @@ def run_open_loop(
     engine,
     requests: Sequence[Request],
     *,
+    watcher=None,
+    poll_interval: float = 0.05,
     on_step: Callable[[int], None] | None = None,
     max_wall: float = 300.0,
     clock: Callable[[], float] = time.perf_counter,
 ) -> TraceResult:
     """Replay ``requests`` against ``engine`` in real time.
 
-    ``on_step(step_idx)`` runs between decode steps; ``max_wall`` is a
-    hard stop so an overloaded configuration ends with truncated
-    completions rather than a hung harness.
+    ``on_step(step_idx)`` runs between decode steps (a test can publish
+    checkpoints inline with it — single-threaded and deterministic);
+    ``watcher`` is polled every ``poll_interval`` seconds of harness time.
+    ``max_wall`` is a hard stop so an overloaded configuration ends with
+    truncated completions rather than a hung harness.
     """
     pending = collections.deque(sorted(requests, key=lambda r: r.arrival))
     queue: collections.deque[Request] = collections.deque()
     completed: list[Request] = []
     steps: list[StepSample] = []
     t0 = clock()
+    last_poll = -poll_interval
+    latest_round = -1
     swaps0 = engine.swaps
     steps0 = engine.decode_steps
     dd0, ad0 = engine.decode_dispatches, engine.admit_dispatches
@@ -136,13 +143,19 @@ def run_open_loop(
             r = queue.popleft()
             if engine.admit(r, now=clock() - t0):
                 completed.append(r)   # finished at admission
+        if watcher is not None and now - last_poll >= poll_interval:
+            engine.poll_watcher(watcher)
+            got = watcher.latest_round()
+            latest_round = got if got is not None else latest_round
+            last_poll = now
         if engine.busy():
             n_active = engine.active_count()
             done = engine.step(now=clock() - t0)
             completed.extend(done)
             steps.append(StepSample(
                 t=now, n_active=n_active, queue_depth=len(queue),
-                serving_round=engine.serving_round, latest_round=-1,
+                serving_round=engine.serving_round,
+                latest_round=latest_round,
             ))
             if on_step is not None:
                 on_step(step_idx)
