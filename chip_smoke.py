@@ -96,7 +96,31 @@ script exits non-zero, printing no result:
      trace, every request completes, and every step samples
      ``latest_round`` = ``serving_round`` = the last round; prints the
      load-and-swap time, and the publish and the load in their parts
-     (copy to the host, write, read and decode, copy to the card).
+     (copy to the host, write, read and decode, copy to the card);
+ 13. tabular main path — the paper's own DeCaPH, noise shares behind
+     fixed-point SecAgg, at paper scale through ``arms.run("decaph", ...)``
+     on ``ideal``: the pancreas MLP 15558-1000-100-4 (15,659,504
+     parameters) on ``make_pancreas_like`` (10,548 cells, 5 hospitals),
+     batch 96, sigma 1.0, 3 rounds; the GEMINI MLP 436-300-100-50-10-1 on
+     ``make_gemini_like`` (40,114 admissions, 8 hospitals, 28 mask pairs);
+     the DenseNet's "full" preset on ``make_xray_like`` (1,800 images of
+     32 x 32, 3 hospitals).  Each: 3 rounds, finite losses, ε the
+     accountant's, one program call per round, each aggregate batch the
+     round's Poisson total (``secure_sum_ints``), and each round's decoded
+     secure sum within n * 2^-17 (+ float32 rounding) of the float64 sum
+     of the payloads that left the card.  Prints a steady pancreas round's
+     wall time and its parts (cohort step, the payloads' copy to the host,
+     encode and masks, aggregate and decode, the copy back), bytes per
+     upload, peak memory, a profiled round's device idle share and each
+     model's pooled accuracy (printed only); then ``python -m
+     repro_torch.run --arm decaph --rounds 3`` (``main``) on the card by
+     default;
+ 14. tabular whole path — in float32 at sigma 0: one pancreas round with
+     SecAgg against the same round without it, every coordinate of the
+     update within lr * n * 2^-17 / batch plus float32 rounding; and
+     ``ghost_clipped_grad_sum_mlp`` against ``per_example_clipped_grad_sum``
+     on one Poisson batch of the full-width pancreas MLP (clipped sums
+     within 1e-5 relative in L2, norms at rtol 1e-5).
 
 The next-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
@@ -158,6 +182,16 @@ from repro_torch.serve.traffic import (  # noqa: E402
     generate_requests,
     run_open_loop,
 )
+import repro_torch.run as run_cli  # noqa: E402
+from repro_torch.arms import fused as fused_lib, runners  # noqa: E402
+from repro_torch.arms.base import poisson_batch  # noqa: E402
+from repro_torch.core import dp as dp_lib, secagg  # noqa: E402
+from repro_torch.data import (  # noqa: E402
+    make_gemini_like,
+    make_pancreas_like,
+    make_xray_like,
+)
+from repro_torch.models import tabular  # noqa: E402
 
 ARCH = "smollm-360m"
 SEED = 0
@@ -1640,6 +1674,389 @@ def time_handoff(dev, smi, params, path: str) -> None:
         f" ({Path(path).stat().st_size:,} bytes) on {smi}")
 
 
+# -- 13. the tabular main path: the paper's DeCaPH behind SecAgg ----------------
+
+# the paper's three case studies at paper scale, with the settings of
+# benchmarks/{pancreas,gemini,xray}_utility.py; SecAgg on, sigma 1.0
+PANCREAS = dict(sizes=[15558, 1000, 100, 4], task="multiclass",
+                data=dict(seed=SEED, n_total=10548, n_silos=5, n_genes=15558,
+                          n_types=4),
+                rounds=3, batch_size=96, lr=0.3, clip=0.5, sigma=1.0,
+                microbatch=8, params=15_659_504)
+GEMINI = dict(sizes=[436, 300, 100, 50, 10, 1], task="binary",
+              data=dict(seed=SEED, n_total=40114, n_silos=8),
+              rounds=3, batch_size=128, lr=0.5, clip=1.0, sigma=1.0,
+              microbatch=16, params=166_771)
+XRAY = dict(densenet=tabular.DenseNetConfig(),          # the "full" preset
+            data=dict(seed=SEED, n_total=1800, n_silos=3, image_size=32),
+            rounds=3, batch_size=48, lr=0.1, clip=0.5, sigma=1.0,
+            microbatch=8)
+F32_EPS = 2.0 ** -24   # float32 unit roundoff
+
+
+def _tabular_cfg(case, *, rounds=None, sigma=None, use_secagg=True
+                 ) -> arms.ArmConfig:
+    return arms.ArmConfig(
+        rounds=case["rounds"] if rounds is None else rounds,
+        batch_size=case["batch_size"], lr=case["lr"], seed=SEED,
+        use_secagg=use_secagg,
+        dp=DPConfig(clip_norm=case["clip"],
+                    noise_multiplier=case["sigma"] if sigma is None
+                    else sigma,
+                    microbatch_size=case["microbatch"]))
+
+
+def _sum_tree(trees, fn):
+    """{leaf index: float64 sum over the trees of fn(leaf)}."""
+    out = [np.zeros(np.shape(leaf), np.float64)
+           for leaf in tree_leaves(trees[0])]
+    for tree in trees:
+        for acc, leaf in zip(out, tree_leaves(tree)):
+            acc += fn(np.asarray(leaf, np.float64))
+    return out
+
+
+def _checked_secure_sum(worst: list):
+    """``runners.secure_sum`` that holds every decoded total against the
+    float64 sum of the payloads that left the card: within n half-steps of
+    the fixed-point grid, plus the float32 rounding of the total.  Appends
+    each round's (max |error|, max error / limit) to ``worst``."""
+    real = runners.secure_sum
+
+    def checked(trees, scfg, **kw):
+        out = real(trees, scfg, **kw)
+        n, step = len(trees), 2.0 ** -(scfg.frac_bits + 1)
+        err = ratio = 0.0
+        for ref, got in zip(_sum_tree(trees, lambda a: a), tree_leaves(out)):
+            got = got.cpu().numpy().astype(np.float64)
+            diff = np.abs(got - ref)
+            limit = n * step + 2 * F32_EPS * np.abs(got)
+            if diff.size:
+                err = max(err, float(diff.max()))
+                ratio = max(ratio, float((diff / limit).max()))
+        worst.append((err, ratio))
+        if ratio > 1.0:
+            raise AssertionError(f"secure sum off the payloads' float64 sum "
+                                 f"by {err:.3e}, {ratio:.3f} x its limit")
+        return out
+
+    return checked
+
+
+def _counting_stack_poisson(sizes: list):
+    """``fused.stack_poisson`` that records each round's Poisson total."""
+    real = fused_lib.stack_poisson
+
+    def counting(*a, **kw):
+        cb = real(*a, **kw)
+        sizes.append(sum(cb.sizes))
+        return cb
+
+    return counting
+
+
+def secure_main_run(name, smi, model, silos, case, n_params) -> dict:
+    """``arms.run("decaph", ...)`` with SecAgg for ``case["rounds"]``
+    rounds: losses finite, ε the accountant's, one program call per round,
+    each aggregate batch the round's Poisson total, each secure sum within
+    its fixed-point limit of the payloads' float64 sum."""
+    cfg = _tabular_cfg(case)
+    if not cfg.use_secagg:
+        raise AssertionError("the tabular main path must run SecAgg")
+    sums, sizes, marks = [], [], []
+
+    def on_round(t, params):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()       # what earlier phases still hold
+    reset_jit_dispatches()
+    with mock.patch.object(runners, "secure_sum", _checked_secure_sum(sums)), \
+            mock.patch.object(fused_lib, "stack_poisson",
+                              _counting_stack_poisson(sizes)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = arms.run("decaph", model, silos, cfg, backend="ideal",
+                          on_round=on_round)
+    calls = jit_dispatches()
+    peak = torch.cuda.max_memory_allocated()
+    got = sum(p.numel() for p in tree_leaves(report.params))
+    if got != n_params:
+        raise AssertionError(f"{name}: {got} parameters, expected {n_params}")
+    rounds = case["rounds"]
+    if report.rounds_completed != rounds or len(sums) != rounds:
+        raise AssertionError(f"{name}: {report.rounds_completed} rounds "
+                             f"completed, {len(sums)} secure sums, expected "
+                             f"{rounds}")
+    losses = [l.loss for l in report.logs]
+    if not all(math.isfinite(x) for x in losses) or not all(
+            bool(torch.isfinite(p).all()) for p in tree_leaves(report.params)):
+        raise AssertionError(f"{name}: non-finite losses {losses} or "
+                             "parameters")
+    n_examples = sum(len(p) for p in silos)
+    acct = RDPAccountant(sampling_rate=case["batch_size"] / n_examples,
+                         noise_multiplier=case["sigma"], delta=cfg.dp.delta)
+    acct.step(rounds)
+    if report.epsilon != acct.epsilon():
+        raise AssertionError(f"{name}: ε {report.epsilon} != the "
+                             f"accountant's {acct.epsilon()}")
+    if calls != rounds:
+        raise AssertionError(f"{name}: {calls} program calls for {rounds} "
+                             "fused rounds")
+    batches = [l.aggregate_batch for l in report.logs]
+    if batches != sizes:
+        raise AssertionError(f"{name}: aggregate batches {batches} != the "
+                             f"rounds' Poisson totals {sizes}")
+    round_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    bytes_up = secagg.secagg_message_bytes(n_params, len(silos))
+    say(f"tabular {name}: {n_params:,} parameters, {len(silos)} hospitals "
+        f"({n_examples:,} examples), batch {case['batch_size']}, sigma "
+        f"{case['sigma']}, SecAgg on, on {smi}: {rounds} rounds, aggregate "
+        f"batches {batches} = the Poisson totals, losses "
+        f"{[round(x, 4) for x in losses]}, ε {report.epsilon:.6f} "
+        f"(accountant {acct.epsilon():.6f}), {calls} program calls; secure "
+        f"sum vs the payloads' float64 sum: max |error| "
+        f"{max(e for e, _ in sums):.3e}, at most "
+        f"{max(r for _, r in sums):.3f} of its limit; round wall s "
+        f"{[round(x, 4) for x in round_s]} (with that check); "
+        f"{bytes_up['per_participant_bytes']:,.0f} bytes per upload; peak "
+        f"memory {(peak - held) / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB held before the run")
+    return {"report": report, "round_s": round_s, "peak": peak}
+
+
+def _timed(store: dict, key: str, fn):
+    """``fn`` that adds its synchronised wall time in ms to ``store[key]``."""
+
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        store[key] = store.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    return wrapper
+
+
+def secure_round_parts(smi, model, silos, params, case) -> None:
+    """One steady SecAgg round of ``case`` from ``params`` (the main run
+    has just run these shapes, so no warm-up): its wall time and its parts,
+    each synchronised (the cohort step on the card; the payloads' copy to
+    the host; encode and masking, with the pair pads apart; aggregate and
+    decode; the copy back; the batch-size sum), then the same round
+    profiled for the device busy time and idle share."""
+    steady = dataclasses.replace(model, init_fn=lambda seed: params)
+    arm_cls = arms.get("decaph")
+    # built once, outside the timed rounds (its accountant's RDP table takes
+    # seconds on the host); each run restarts from ``params`` and reseeds
+    # the Poisson draws, so every round below is the same round
+    arm = arm_cls(steady, silos, _tabular_cfg(case, rounds=1))
+
+    def one_round():
+        arms.LocalRunner().run(arm)
+
+    parts: dict[str, float] = {}
+    real_aggregate = secagg.SecAggSession.aggregate
+    with mock.patch.object(arm, "_fused_step", _timed(
+            parts, "cohort step", arm._fused_step)), \
+            mock.patch.object(fused_lib, "build_contributions", _timed(
+                parts, "payloads to host", fused_lib.build_contributions)), \
+            mock.patch.object(secagg.SecAggSession, "upload_all", _timed(
+                parts, "encode + masks", secagg.SecAggSession.upload_all)), \
+            mock.patch.object(secagg.SecAggSession, "_flat_masks", _timed(
+                parts, "pads", secagg.SecAggSession._flat_masks)), \
+            mock.patch.object(secagg.SecAggSession, "aggregate", _timed(
+                parts, "aggregate", real_aggregate)), \
+            mock.patch.object(secagg, "_to_tensors", _timed(
+                parts, "copy back", secagg._to_tensors)), \
+            mock.patch.object(runners, "secure_sum_ints", _timed(
+                parts, "batch-size sum", runners.secure_sum_ints)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_round()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the pads are drawn inside upload_all (the masks are built lazily), and
+    # the copy back happens inside aggregate: each part once
+    parts["encode + mask add"] = parts.pop("encode + masks") - parts["pads"]
+    parts["aggregate + decode"] = parts.pop("aggregate") - parts["copy back"]
+    parts["rest"] = wall_ms - sum(parts.values())
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    say(f"tabular round parts: pancreas MLP steady round with SecAgg, "
+        f"{len(silos)} hospitals x {4 * n_params:,} bytes of payload, on "
+        f"{smi}: wall {wall_ms:.1f} ms = "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in parts.items()))
+    busy_us, by_kernel, prof_ms, _ = _device_profile(one_round)
+    if busy_us <= 0:
+        say("tabular round profile: torch.profiler recorded no device time "
+            "on this machine, so device busy and idle share are not measured")
+        return
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    say(f"tabular round profile: pancreas MLP steady round with SecAgg, on "
+        f"{smi}: wall {wall_ms:.1f} ms ({prof_ms:.1f} ms with the profiler "
+        f"on), device busy {busy_us / 1e3:.1f} ms, device idle "
+        f"{100 * (1 - busy_us / 1e3 / wall_ms):.1f}% of the round; top device"
+        f" ops: " + "; ".join(f"{_short(k)[:60]} {us / 1e3:.2f} ms"
+                              for k, us in top))
+
+
+def _argmax_accuracy(model, params, silos) -> float:
+    x = np.concatenate([p.x for p in silos])
+    y = np.concatenate([p.y for p in silos])
+    with torch.no_grad():
+        probs = model.predict_fn(params, torch.from_numpy(x).to(
+            tree_leaves(params)[0].device))
+    return float((probs.argmax(-1).cpu().numpy() == y).mean())
+
+
+def tabular_main_path(dev, smi) -> dict:
+    """The paper's three case studies with DeCaPH behind SecAgg at paper
+    scale, the pancreas round in its parts, and the CLI on the card.
+    Returns the pancreas model, silos and trained parameters."""
+    t0 = time.perf_counter()
+    silos = arms.normalize_participants(make_pancreas_like(**PANCREAS["data"]))
+    data_s = time.perf_counter() - t0
+    model = tabular.make_mlp_classifier(PANCREAS["sizes"], PANCREAS["task"],
+                                        device=str(dev))
+    out = secure_main_run("pancreas MLP", smi, model, silos, PANCREAS,
+                          PANCREAS["params"])
+    params = out["report"].params
+    say(f"tabular pancreas MLP: data {data_s:.1f} s on the host; pooled "
+        f"argmax accuracy after {PANCREAS['rounds']} rounds "
+        f"{_argmax_accuracy(model, params, silos):.4f} (printed only)")
+    secure_round_parts(smi, model, silos, params, PANCREAS)
+    torch.cuda.empty_cache()
+
+    gsilos = arms.normalize_participants(make_gemini_like(**GEMINI["data"]))
+    gmodel = tabular.make_mlp_classifier(GEMINI["sizes"], GEMINI["task"],
+                                         device=str(dev))
+    g = secure_main_run(f"GEMINI MLP ({len(gsilos) * (len(gsilos) - 1) // 2} "
+                        "mask pairs)", smi, gmodel, gsilos, GEMINI,
+                        GEMINI["params"])
+    say(f"tabular GEMINI MLP: pooled accuracy "
+        f"{tabular.pooled_accuracy(gmodel, g['report'].params, gsilos):.4f}"
+        " (printed only)")
+
+    xsilos = arms.normalize_participants(make_xray_like(**XRAY["data"]))
+    xmodel = tabular.make_densenet(XRAY["densenet"], device=str(dev))
+    x_params = sum(p.numel() for p in tree_leaves(xmodel.init_fn(SEED)))
+    x = secure_main_run("DenseNet (full preset)", smi, xmodel, xsilos, XRAY,
+                        x_params)
+    say(f"tabular DenseNet: pooled multilabel accuracy "
+        f"{tabular.pooled_accuracy(xmodel, x['report'].params, xsilos):.4f}"
+        " (printed only)")
+
+    t0 = time.perf_counter()
+    rc = run_cli.main(["--arm", "decaph", "--rounds", "3"])
+    if rc != 0:
+        raise AssertionError(f"python -m repro_torch.run returned {rc}")
+    say(f"tabular CLI: repro_torch.run.main(['--arm', 'decaph', '--rounds', "
+        f"'3']) on the card by default: rc 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return {"model": model, "silos": silos, "params": params}
+
+
+# -- 14. the tabular whole path: SecAgg against the plain sum, ghost vs faithful --
+
+
+def _update_bound(params0, sec, plain, abs_sum, lr, n, frac_bits, batch):
+    """Per coordinate, |(sec - p0) - (plain - p0)| against the fixed-point
+    limit lr * n * 2^-(frac_bits+1) / batch plus float32 rounding: of the
+    two totals (n + 4 roundings of the payloads' absolute sum, decode,
+    division and product included) and of the two final subtractions.
+    Returns (max |difference|, max difference / limit, L2 of the plain
+    update)."""
+    diff = ratio = upd_sq = 0.0
+    for p0, ps, pp, a in zip(tree_leaves(params0), tree_leaves(sec),
+                             tree_leaves(plain), abs_sum):
+        p0, ps, pp = (t.double().cpu().numpy() for t in (p0, ps, pp))
+        d = np.abs((ps - p0) - (pp - p0))
+        limit = lr / batch * (n * 2.0 ** -(frac_bits + 1)
+                              + (n + 4) * F32_EPS * a) \
+            + F32_EPS * (np.abs(ps) + np.abs(pp))
+        diff = max(diff, float(d.max()))
+        ratio = max(ratio, float((d / limit).max()))
+        upd_sq += float(np.square(pp - p0).sum())
+    return diff, ratio, math.sqrt(upd_sq)
+
+
+def tabular_whole_path(dev, smi, pancreas) -> None:
+    """At sigma 0 in float32: one pancreas round with SecAgg against the
+    same round without it, and ``ghost_clipped_grad_sum_mlp`` against the
+    faithful per-example clipped sum on one Poisson batch of the full-width
+    pancreas MLP."""
+    case, silos = PANCREAS, pancreas["silos"]
+    params0 = pancreas["params"]
+    model = dataclasses.replace(pancreas["model"],
+                                init_fn=lambda seed: params0)
+    abs_sum: list = []
+    real = runners.secure_sum
+
+    def keep_abs(trees, scfg, **kw):
+        abs_sum.extend(_sum_tree(trees, np.abs))
+        return real(trees, scfg, **kw)
+
+    with mock.patch.object(runners, "secure_sum", keep_abs):
+        sec = arms.run("decaph", model, silos,
+                       _tabular_cfg(case, rounds=1, sigma=0.0))
+    plain = arms.run("decaph", model, silos,
+                     _tabular_cfg(case, rounds=1, sigma=0.0,
+                                  use_secagg=False))
+    batch = sec.logs[0].aggregate_batch
+    if batch != plain.logs[0].aggregate_batch or not abs_sum:
+        raise AssertionError("the secure and plain rounds saw different "
+                             "batches, or the secure sum never ran")
+    diff, ratio, upd = _update_bound(params0, sec.params, plain.params,
+                                     abs_sum, case["lr"], len(silos), 16,
+                                     batch)
+    ok = ratio <= 1.0 and upd > 0
+    say(f"tabular whole path: pancreas MLP full width float32, sigma 0, one "
+        f"round with SecAgg vs without (aggregate batch {batch}), on {smi}: "
+        f"plain update L2 {upd:.6e}, max |difference| {diff:.3e}, at most "
+        f"{ratio:.3f} of the limit lr n 2^-17 / batch + float32 rounding "
+        f"({case['lr'] * len(silos) * 2.0 ** -17 / batch:.3e} + ...) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the SecAgg round and the plain round disagree "
+                             "beyond the fixed-point limit")
+
+    rng = np.random.default_rng(SEED)
+    rate = case["batch_size"] / sum(len(p) for p in silos)
+    b, _, k = poisson_batch(rng, silos[0], rate, 8)
+    batch = {"x": torch.from_numpy(b["x"][:k]).to(dev),
+             "y": torch.from_numpy(b["y"][:k]).to(dev)}
+    clip = case["clip"]
+    ghost, gnorms = tabular.ghost_clipped_grad_sum_mlp(
+        params0, batch, case["sizes"], case["task"], clip)
+    faithful, _ = dp_lib.per_example_clipped_grad_sum(
+        model.loss_fn, params0, batch, clip_norm=clip,
+        microbatch_size=case["microbatch"])
+    grad = torch.func.vmap(torch.func.grad(model.loss_fn), in_dims=(None, 0))
+    norms = torch.cat([
+        torch.func.vmap(dp_lib.global_l2_norm)(grad(
+            params0, {key: v[i:i + case["microbatch"]]
+                      for key, v in batch.items()}))
+        for i in range(0, k, case["microbatch"])])
+    diff_sq = ref_sq = 0.0
+    for g, f in zip(tree_leaves(ghost), tree_leaves(faithful)):
+        diff_sq += float((g.double() - f.double()).square().sum())
+        ref_sq += float(f.double().square().sum())
+    rel = math.sqrt(diff_sq / ref_sq)
+    norm_rel = float(((gnorms - norms).abs() / norms).max())
+    ok = rel <= 1e-5 and norm_rel <= 1e-5 and bool((norms > 0).all())
+    say(f"tabular whole path: pancreas MLP full width float32, one Poisson "
+        f"batch of {k} examples, ghost_clipped_grad_sum_mlp vs "
+        f"per_example_clipped_grad_sum: clipped sums {rel:.3e} relative in L2"
+        f" (limit 1e-5), norms {norm_rel:.3e} relative (rtol 1e-5), "
+        f"{int((norms > clip).sum())} of {k} clipped "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ghost and faithful clipping disagree on the "
+                             "pancreas MLP")
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -1684,6 +2101,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["decode_attention"] += hot_swap_path(dev, smi, train, ckpt.name)
     ckpt.cleanup()
+    del train
+    torch.cuda.empty_cache()
+    pancreas = tabular_main_path(dev, smi)
+    torch.cuda.empty_cache()
+    tabular_whole_path(dev, smi, pancreas)
     lines = [{**k, "launches": launches[k["name"]],
               "max_abs_err": worst[k["name"]], **times[k["name"]]}
              for k in KERNELS]

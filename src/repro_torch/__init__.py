@@ -2,14 +2,19 @@
 
 The JAX package ``repro`` is the reference; this package keeps its module
 layout so each module's counterpart is easy to find, and imports nothing
-of it (and no JAX).  What is ported so far is the serving path and DP
-training of the dense decoder:
+of it (and no JAX).  What is ported so far is the serving path, DP
+training of the dense decoder, and the paper's own DeCaPH (SecAgg, the
+tabular and DenseNet models and their synthetic hospital data):
 
   * ``configs``   — ``ModelConfig`` and the ``smollm-360m`` config;
   * ``models``    — RMSNorm, RoPE, FFN, full-sequence and decode GQA, and
     the dense decoder stack's ``forward`` / ``loss_fn`` /
     ``per_example_loss_fn`` / ``decode_step`` / ``decode_step_positions``
-    / ``prefill``;
+    / ``prefill``; ``models.tabular``, the paper's own models (the GEMINI
+    and pancreas MLPs, logistic regression, SVC, the BN-free DenseNet);
+  * ``data``      — the synthetic hospital data (GEMINI-, pancreas- and
+    X-ray-like) and the silo partitioners, numpy copies of the
+    reference's;
   * ``kernels.decode_attention`` — single-query GQA attention as a CUDA
     C++ kernel for ``sm_90a`` (``csrc/decode_attention.cu``), with its
     plain PyTorch version beside it;
@@ -17,10 +22,12 @@ training of the dense decoder:
     layer as a CUDA C++ kernel for ``sm_90a`` (``csrc/ghost_norm.cu``),
     with its plain version and the full-Gram oracle beside it;
   * ``core``      — the RDP accountant, DP clipping and noise shares,
-    ghost clipping (``autograd.Function`` collectors) and the leader
-    schedule;
+    ghost clipping (``autograd.Function`` collectors), fixed-point SecAgg
+    (``core.secagg``, host numpy) and the leader schedule;
   * ``arms``      — ``arms.run`` with the ``decaph`` arm on the ``ideal``
-    backend: the fused cohort round, one program call per round;
+    backend: the fused cohort round, one program call per round, SecAgg
+    on by default; ``run`` is ``python -m repro_torch.run``, the
+    reference's CLI;
   * ``serve``     — the fixed-slot continuous-batching ``ServeEngine``,
     the seeded open-loop traffic harness and its metrics, and the
     ``transformer_model`` / ``token_silos`` federation glue;

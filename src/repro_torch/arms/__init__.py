@@ -11,10 +11,22 @@ any compute.  The same call as the reference's:
                       arms.ArmConfig(rounds=3, use_secagg=False),
                       backend="ideal")
 
+or, the paper's own experiments (DP noise shares behind SecAgg, the
+``ArmConfig()`` default):
+
+    from repro_torch.data import make_pancreas_like
+    from repro_torch.models.tabular import make_mlp_classifier
+
+    report = arms.run("decaph",
+                      make_mlp_classifier([15558, 1000, 100, 4], "multiclass"),
+                      arms.normalize_participants(make_pancreas_like(...)),
+                      arms.ArmConfig(rounds=3))
+
 Ported so far: the ``decaph`` arm on the ``ideal`` backend (the fused
-cohort round, ghost or per-example clipping, noise shares, the RDP
-accountant and the privacy ledger).  SecAgg, the simulated-time backend
-and the other arms are still to port (ROADMAP.md, Queue 1 item 5).
+cohort round, ghost or per-example clipping, noise shares, fixed-point
+SecAgg over the shares and the batch sizes, the RDP accountant and the
+privacy ledger).  The simulated-time backend (with dropout-robust SecAgg)
+and the other arms are still to port (ROADMAP.md, Queue 1 item 5b).
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from repro_torch.arms.base import (
     Participant,
     RoundArm,
     RoundOutcome,
+    normalize_participants,
     poisson_batch,
     sgd_update,
     tree_bytes,
@@ -83,6 +96,7 @@ __all__ = [
     "clipping",
     "get",
     "names",
+    "normalize_participants",
     "poisson_batch",
     "register",
     "run",

@@ -5,11 +5,13 @@ Counterpart of ``repro.arms.backends``, cut to what the port runs: the
 record and ``validate_run``, which refuses an (arm, backend, config)
 combination the record rules out before any compute.  The reference's
 backend registry comes back with a second backend (the simulated-time
-``SimRunner``, ROADMAP.md Queue 1 item 5).
+``SimRunner``, ROADMAP.md Queue 1 item 5b).
 
-The port does not run SecAgg yet (Queue 1 item 5), so an arm with SecAgg
-uploads under ``use_secagg=True`` is refused at validation; it never falls
-back to plain sums mid-run.
+``ideal`` runs SecAgg (``supports_secagg``): an arm with SecAgg uploads
+under ``use_secagg=True`` sums its payloads through
+``core.secagg.secure_sum`` and its batch sizes through ``secure_sum_ints``.
+The rule that refuses secure uploads on a backend without SecAgg stays, as
+in the reference, for the backends still to come.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ class BackendInfo:
 
 IDEAL = BackendInfo(
     name="ideal",
-    supports_secagg=False,
+    supports_secagg=True,
     description="idealized lockstep: every hospital infinitely fast and "
                 "always online, communication free",
 )
@@ -48,7 +50,7 @@ def compatibility_error(arm_cls: type, backend: str, *, use_secagg: bool,
     """The rule that rejects this (arm, backend, config) — or None if OK."""
     if backend != IDEAL.name:
         return (f"unknown backend {backend!r}; the port runs only "
-                f"{IDEAL.name!r} so far (ROADMAP.md, Queue 1 item 5)")
+                f"{IDEAL.name!r} so far (ROADMAP.md, Queue 1 item 5b)")
     arm_name = getattr(arm_cls, "name", arm_cls.__name__)
     if participation_rate < 1.0 and not IDEAL.supports_subsampling:
         return (
@@ -59,9 +61,9 @@ def compatibility_error(arm_cls: type, backend: str, *, use_secagg: bool,
     secure = bool(getattr(arm_cls, "secure_uploads", False)) and use_secagg
     if secure and not IDEAL.supports_secagg:
         return (
-            f"arm {arm_name!r} uploads SecAgg ciphertexts but the port's "
-            f"backend {backend!r} does not run SecAgg yet (ROADMAP.md, "
-            f"Queue 1 item 5); set use_secagg=False to run it there"
+            f"arm {arm_name!r} uploads SecAgg ciphertexts but backend "
+            f"{backend!r} does not run SecAgg; set use_secagg=False to run "
+            f"it there"
         )
     return None
 

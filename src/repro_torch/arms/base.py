@@ -64,14 +64,32 @@ class Participant:
         return len(self.x)
 
 
+def _global_stats(parts: Sequence[Participant]
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Preparation-phase global mean/std via (conceptually) SecAgg sums."""
+    n = sum(len(p) for p in parts)
+    s = sum(p.x.sum(axis=0) for p in parts)
+    mean = s / n
+    sq = sum(((p.x - mean) ** 2).sum(axis=0) for p in parts)
+    std = np.sqrt(sq / n) + 1e-8
+    return mean.astype(np.float32), std.astype(np.float32)
+
+
+def normalize_participants(parts: Sequence[Participant]) -> list[Participant]:
+    """Every silo's features standardised by the cohort's global mean/std
+    (the reference's preparation step, the same numpy arithmetic)."""
+    mean, std = _global_stats(parts)
+    return [Participant((p.x - mean) / std, p.y) for p in parts]
+
+
 # -- configuration -----------------------------------------------------------
 
 
 @dataclasses.dataclass
 class ArmConfig:
     """One config for every round arm: the reference's fields that the
-    ported arms read (the SecAgg, simulation and other arms' knobs come
-    with their slices)."""
+    ported arms read (the simulation and other arms' knobs come with their
+    slices)."""
 
     rounds: int = 100
     batch_size: int = 64           # desired aggregate mini-batch size B
@@ -79,7 +97,8 @@ class ArmConfig:
     weight_decay: float = 0.0
     dp: dp_lib.DPConfig = dataclasses.field(default_factory=dp_lib.DPConfig)
     epsilon_budget: float | None = None   # stop when the accountant exceeds it
-    use_secagg: bool = True        # SecAgg (not ported: refused at validation)
+    use_secagg: bool = True        # run the real fixed-point SecAgg protocol
+    secagg_frac_bits: int = 16
     leader_strategy: str = "uniform"
     participation_rate: float = 1.0  # < 1 is refused: no backend subsamples
     clipping: str = "auto"         # "auto" | "ghost" | "per-example"
@@ -164,8 +183,9 @@ def default_pad(rate: float, participants: Sequence[Participant],
 @dataclasses.dataclass
 class Contribution:
     """What one participant produces in one round: the ``payload`` tree that
-    goes on the wire (None while it stays inside the fused round's reduced
-    sum), ``size`` real examples consumed, optional ``loss``."""
+    goes on the wire (host numpy views for SecAgg; None while it stays
+    inside the fused round's reduced sum), ``size`` real examples consumed,
+    optional ``loss``."""
 
     payload: Tree | None
     size: int
@@ -186,10 +206,10 @@ class AggregationServices:
     """Backend-provided aggregation primitives (DESIGN.md §5).
 
     ``fused_reduced`` is the cohort aggregate the fused round-step already
-    reduced on the device.
+    reduced on the device (None when the payloads go through SecAgg).
     """
 
-    fused_reduced: Tree
+    fused_reduced: Tree | None
 
     def sum_sizes(self, sizes: Sequence[int]) -> int:  # pragma: no cover
         raise NotImplementedError
@@ -259,13 +279,16 @@ class RoundArm(Arm):
         return self.model.init_fn(self.cfg.seed)
 
     def fused_round(self, params: Tree, active: Sequence[int], t: int,
-                    rng: np.random.Generator, n_shares: int
-                    ) -> tuple[dict[int, Contribution], Tree]:
+                    rng: np.random.Generator, n_shares: int,
+                    payloads: bool = False
+                    ) -> tuple[dict[int, Contribution], Tree | None]:
         """The cohort-batched round step (DESIGN.md §7): every active
-        participant's contribution in ONE program call with ONE host sync
-        for metrics, and the cohort aggregate reduced on the device.
+        participant's contribution in ONE program call with ONE host sync.
         Consumes ``rng`` in (round, ascending participant index) order.
-        The payloads stay inside the reduced sum (``payload`` is None)."""
+        With ``payloads`` (SecAgg uploads) every participant's payload comes
+        to the host in the same one copy, as numpy views, and no reduced sum
+        is returned; otherwise the payloads stay on the device inside the
+        cohort aggregate reduced there (``payload`` is None)."""
         raise NotImplementedError
 
     def aggregate(self, params: Tree, contributions: Mapping[int, Contribution],

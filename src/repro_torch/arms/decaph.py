@@ -2,10 +2,10 @@
 
 Counterpart of ``repro.arms.decaph``: shared Poisson rate, per-example
 clipping (ghost clipping for models that declare it), per-participant
-noise shares sized so the **sum** carries N(0, (C sigma)^2), rotating
-facilitator, one shared RDP accountant over the aggregate dataset.  SecAgg
-is not ported yet, so ``arms.run`` refuses ``use_secagg=True`` for this
-arm at validation.
+noise shares sized so the **sum** carries N(0, (C sigma)^2), SecAgg over
+the noised shares and the batch sizes (``use_secagg``, the default),
+rotating facilitator, one shared RDP accountant over the aggregate
+dataset.
 
 The reference ``vmap``s one participant's step over the cohort; the port
 loops over the cohort inside one ``instrumented`` cohort step (the
@@ -107,9 +107,11 @@ class DeCaPHArm(RoundArm):
             noise_multiplier=self.cfg.dp.noise_multiplier, n_shares=n_shares,
         )
 
-    def _cohort_step(self, params, bx, by, masks, t, active, n_shares):
-        """The cohort total of the noised clipped sums, in ascending-slot
-        order, and every participant's loss."""
+    def _cohort_step(self, params, bx, by, masks, t, active, n_shares,
+                     payloads=False):
+        """Every participant's noised clipped sum (``payloads``) or else
+        their cohort total in ascending-slot order, and every participant's
+        loss; the one not returned is None."""
         device = tree_device(params)
         stack, losses = [], []
         for s, i in enumerate(active):
@@ -117,17 +119,22 @@ class DeCaPHArm(RoundArm):
                                         masks[s])
             stack.append(self._noised(g_sum, t, i, n_shares, device))
             losses.append(loss)
-        return fused.seq_tree_sum(stack), torch.stack(losses)
+        if payloads:
+            return stack, None, torch.stack(losses)
+        return None, fused.seq_tree_sum(stack), torch.stack(losses)
 
-    def fused_round(self, params, active, t, rng, n_shares):
+    def fused_round(self, params, active, t, rng, n_shares,
+                    payloads=False):
         cb = fused.stack_poisson(rng, self.participants, active, self.rate,
                                  self.pad)
         device = tree_device(params)
-        reduced, losses = self._fused_step(
+        stack, reduced, losses = self._fused_step(
             params, torch.from_numpy(cb.x).to(device),
             torch.from_numpy(cb.y).to(device),
-            torch.from_numpy(cb.masks).to(device), t, list(active), n_shares)
-        return fused.build_contributions(active, losses, cb.sizes), reduced
+            torch.from_numpy(cb.masks).to(device), t, list(active), n_shares,
+            payloads)
+        return fused.build_contributions(active, losses, cb.sizes,
+                                         stack), reduced
 
     def aggregate(self, params, contributions: Mapping[int, Contribution],
                   services: AggregationServices) -> RoundOutcome:

@@ -5,7 +5,8 @@ padded Poisson batches on a participant axis and ``vmap``s the arm's
 per-silo numerics across it inside ONE jitted program.  A hand-written
 kernel cannot be vmapped, so the port's cohort step loops over the cohort
 inside one ``instrumented`` call: still one program call and one host
-sync (the stacked losses) per round.
+sync per round (the stacked losses, and with SecAgg the cohort's payloads
+in the same copy).
 
 Contract, as in the reference:
 
@@ -36,6 +37,7 @@ from repro_torch.instrument import (  # noqa: F401  (re-exported)
     jit_dispatches,
     reset_jit_dispatches,
 )
+from repro_torch.tree import Tree, tree_leaves, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -87,15 +89,49 @@ def stack_poisson(rng: np.random.Generator,
 seq_tree_sum = tree_sum
 
 
+def _host_rows(payloads: Sequence[Tree], losses: torch.Tensor
+               ) -> tuple[list[Tree], np.ndarray]:
+    """The cohort's payload trees and losses in ONE device-to-host copy.
+
+    On the device, each tree is flattened into one float32 row and the rows
+    are stacked into [n_active, L + 1] with each participant's loss in the
+    last column; after the one ``.cpu()``, every payload leaf is a numpy
+    view of its row.
+    """
+    rows = torch.stack([
+        torch.cat([leaf.detach().reshape(-1).float()
+                   for leaf in tree_leaves(tree)] + [loss.reshape(1)])
+        for tree, loss in zip(payloads, losses.detach().float())
+    ])
+    host = rows.cpu().numpy()
+    views = []
+    for row in host:
+        leaves, off = [], 0
+        for leaf in tree_leaves(payloads[0]):
+            leaves.append(row[off:off + leaf.numel()].reshape(leaf.shape))
+            off += leaf.numel()
+        views.append(tree_unflatten(payloads[0], leaves))
+    return views, host[:, -1]
+
+
 def build_contributions(active: Sequence[int], losses: torch.Tensor,
-                        sizes: Sequence[int]) -> dict[int, Contribution]:
-    """One host sync for the whole cohort's losses.  The payloads stay on
-    the device inside the reduced sum, so each ``Contribution.payload`` is
-    None."""
-    loss_vals = losses.detach().cpu().numpy()
+                        sizes: Sequence[int],
+                        payloads: Sequence[Tree] | None = None
+                        ) -> dict[int, Contribution]:
+    """One host sync for the whole cohort's losses — and, when the backend
+    needs per-participant payloads (SecAgg uploads), for the whole cohort's
+    payloads in the same copy; the slices are numpy views.
+
+    Without ``payloads`` they stay on the device inside the fused reduced
+    sum and each ``Contribution.payload`` is None.
+    """
+    if payloads is None:
+        slices, loss_vals = [None] * len(active), losses.detach().cpu().numpy()
+    else:
+        slices, loss_vals = _host_rows(payloads, losses)
     return {
         i: Contribution(
-            payload=None,
+            payload=slices[s],
             size=int(sizes[s]),
             # repro: allow[host-sync-hygiene] loss_vals is host numpy: the one sync per round is .cpu() above, the port's counterpart of the sanctioned repro.arms.fused:build_contributions
             loss=float(loss_vals[s]),

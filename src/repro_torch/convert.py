@@ -17,7 +17,11 @@ or as tensors where a checkpoint carries them:
     ``repro-ckpt-v1`` checkpoints hold (``serve.handoff``);
   * ``cache_to_numpy(cache)`` returns the port's cache in the reference's
     layout, ``{"group0": {"e0": {"attn": {"k", "v"}}}}`` of shape
-    [n_layers, B, L, KV, hd], so tests can compare caches leaf by leaf.
+    [n_layers, B, L, KV, hd], so tests can compare caches leaf by leaf;
+  * ``tabular_params_from_jax(np_params, device)`` /
+    ``tabular_params_to_numpy(params)`` carry the tabular models'
+    parameters (``models.tabular``) across leaf for leaf, dtypes kept:
+    their layout is the reference's own (dense [d_in, d_out], conv HWIO).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.layers import pname
 from repro_torch.models.transformer import check_supported
+from repro_torch.tree import tree_map
 
 # port layer key -> (reference sub-dict, reference key)
 _LAYER_KEYS = {
@@ -131,3 +136,17 @@ def cache_to_numpy(cache: dict) -> dict:
     return {"group0": {"e0": {"attn": {
         name: _numpy(cache[name]) for name in ("k", "v")
     }}}}
+
+
+def tabular_params_from_jax(np_params: dict, device=DEFAULT_DEVICE) -> dict:
+    """A tabular model's parameters from the reference's tree (numpy
+    leaves), leaf for leaf with each dtype kept, on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device),
+                    np_params)
+
+
+def tabular_params_to_numpy(params: dict) -> dict:
+    """Inverse of ``tabular_params_from_jax``: numpy leaves, dtypes kept."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)

@@ -2,8 +2,9 @@
 
 The ``tests/test_ghost_fused.py`` setup: ``smollm-360m`` smoke with
 untied embeddings, 3 ``token_silos`` hospitals, batch 12, 3 rounds on the
-``ideal`` backend without SecAgg, both packages starting from the same
-parameters (the reference's, carried across with ``params_from_jax``).
+``ideal`` backend without SecAgg (and once with it), both packages
+starting from the same parameters (the reference's, carried across with
+``params_from_jax``).
 
 JAX's threefry noise cannot be reproduced by a torch generator, so the
 noised path is held to the reference in three parts: at sigma = 0 the
@@ -14,6 +15,7 @@ at sigma = 0.8 (at sigma = 0, ε is inf).
 """
 
 import dataclasses
+from unittest import mock
 
 import jax
 import numpy as np
@@ -32,7 +34,7 @@ from repro.core.leader import leader_schedule as jax_leader_schedule
 from repro.obs.ledger import validate_entries as jax_validate_entries
 from repro.serve.federation import token_silos as jax_token_silos
 from repro.serve.federation import transformer_model as jax_transformer_model
-from repro_torch.arms import fused
+from repro_torch.arms import backends, fused, runners
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.core import accountant, dp
@@ -193,9 +195,36 @@ def test_ideal_backend_refuses_what_it_cannot_run(lm, backend, kw, match):
 
 
 def test_secagg_is_refused_at_validation(lm):
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        arms.run("decaph", lm["tmodel"], lm["tsilos"],
-                 _cfg(0.8, use_secagg=True))
+    """Secure uploads are refused before any compute on a backend whose
+    record says it does not run SecAgg (``ideal`` does: see below)."""
+    no_secagg = dataclasses.replace(backends.IDEAL, supports_secagg=False)
+    with mock.patch.object(backends, "IDEAL", no_secagg):
+        with pytest.raises(ValueError, match="does not run SecAgg"):
+            arms.run("decaph", lm["tmodel"], lm["tsilos"],
+                     _cfg(0.8, use_secagg=True))
+        # the same arm without SecAgg is not refused by that rule
+        assert backends.compatibility_error(
+            arms.get("decaph"), "ideal", use_secagg=False) is None
+
+
+def test_secagg_path_is_taken_and_matches_reference(lm):
+    """With ``use_secagg=True`` on ``ideal`` the payloads take the secure
+    path, one ``secure_sum`` over every participant per round, and the
+    round matches the reference's at sigma = 0."""
+    calls = []
+
+    def spy(trees, scfg, **kw):
+        calls.append((len(trees), scfg.seed))
+        return real(trees, scfg, **kw)
+
+    real = runners.secure_sum
+    with mock.patch.object(runners, "secure_sum", spy):
+        ours = _run_port(lm, use_secagg=True)
+    assert calls == [(3, 0), (3, 1), (3, 2)]
+    ref = _run_jax(lm, use_secagg=True)
+    assert [l.aggregate_batch for l in ours.logs] == \
+        [l.aggregate_batch for l in ref.logs]
+    assert _max_param_diff(ours.params, lm["tcfg"], ref.params) <= ROUND_ATOL
 
 
 @pytest.mark.parametrize("strategy", ["round_robin", "balanced"])

@@ -237,21 +237,45 @@ def test_engine_needs_cuda_unless_cpu_is_asked_for(monkeypatch):
         == torch.device("cpu")
 
 
+def _run_python(code: str) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=180,
+                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+
+
 def test_port_imports_no_jax_and_no_reference_module():
+    """Every module of the port, found by walking the package (so each new
+    slice's modules are checked too), imports no JAX and nothing of
+    ``repro``; the SecAgg and data modules also load no ``msgpack`` and no
+    ``ml_dtypes``, which the card's machine lacks."""
     code = (
-        "import sys\n"
-        "import repro_torch, repro_torch.serve, repro_torch.convert\n"
-        "import repro_torch.models.transformer\n"
-        "import repro_torch.kernels.decode_attention.ops\n"
-        "import repro_torch.arms, repro_torch.core.ghost, repro_torch.core.dp\n"
-        "import repro_torch.kernels.ghost_norm, repro_torch.serve.federation\n"
-        "import repro_torch.kernels.flash_attention\n"
-        "import repro_torch.core.accountant, repro_torch.obs.ledger\n"
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')\n"
+        "    if m.name.rsplit('.', 1)[-1] != '__main__']\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+        "print(' '.join(names))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120,
-                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    out = _run_python(code)
+    assert out.returncode == 0, out.stdout + out.stderr
+    walked = set(out.stdout.split("\n")[0].split())
+    assert {"repro_torch.core.secagg", "repro_torch.data.synthetic",
+            "repro_torch.data.partition", "repro_torch.models.tabular",
+            "repro_torch.run", "repro_torch.serve.engine",
+            "repro_torch.checkpoint.checkpoint",
+            "repro_torch.kernels.ghost_norm.ops"} <= walked, walked
+    code = (
+        "import sys\n"
+        "import repro_torch.core.secagg, repro_torch.data\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'repro', 'msgpack', 'ml_dtypes')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = _run_python(code)
     assert out.returncode == 0, out.stdout + out.stderr
