@@ -120,7 +120,37 @@ script exits non-zero, printing no result:
      update within lr * n * 2^-17 / batch plus float32 rounding; and
      ``ghost_clipped_grad_sum_mlp`` against ``per_example_clipped_grad_sum``
      on one Poisson batch of the full-width pancreas MLP (clipped sums
-     within 1e-5 relative in L2, norms at rtol 1e-5).
+     within 1e-5 relative in L2, norms at rtol 1e-5);
+ 15. comparison arms — on phase 13's GEMINI configuration (8 hospitals,
+     batch 128, sigma 1.0, 3 rounds; the node arms 3 local steps each)
+     ``fl``, ``fl`` with ``fl_local_steps=3``, ``fedprox``, ``scaffold``,
+     ``primia``, ``local``, ``gossip`` and ``gossip-dp`` on ``ideal``:
+     finite parameters, ε 0 for the non-private arms and each client's ε
+     its own fresh ``RDPAccountant``'s for the private ones, exactly one
+     program call per round for every round arm; round walls, logged and
+     pooled losses; ``fl`` and ``primia`` once more with
+     ``fused_rounds=False`` at sigma 0, within 1e-5 of the fused round;
+     then ``primia`` on SmolLM-360M (untied head, full width, phase 6's
+     silos, batch 16, sigma 1.0) for 2 rounds with ghost clipping: 225
+     ``ghost_norm`` launches per participant and round (counted from 0 for
+     this run and added to the kernels line), one program call per round,
+     each client's ε its accountant's;
+ 16. simulated time — phase 13's pancreas DeCaPH with SecAgg on ``sim``
+     (``nodes_from_trace(heterogeneous_trace(5))``): on the clean trace
+     the parameters and losses are bit-identical (``torch.equal``) to phase
+     13's ``ideal`` run; then the slowest hospital that does not lead round
+     1 drops out a quarter into round 1's upload window and rejoins before
+     round 2: at least one Shamir recovery and one noise top-up, every
+     secure total (with its top-up) within n half-steps of the fixed-point
+     grid plus float32 rounding of the float64 sum of the delivered
+     payloads plus the top-up, ε the accountant's; prints ``SimTiming`` and
+     the host ms of the ``secagg.recover`` and ``noise_topup`` spans;
+ 17. privacy audit (Fig. 5) — ``core.mia.lira_attack`` at
+     ``benchmarks/mia.py``'s fast scale (400 GEMINI-like admissions, 8
+     shadows, 60 steps of MLP 436-64-16-1, lr 1.0) against an FL target
+     and a DP target (C 1.0, sigma 0.8), every model trained on the card
+     with the port's ``core.dp``: AUROC and TPR at 1% FPR finite in
+     [0, 1], the ROC curve non-decreasing; the gap is printed only.
 
 The next-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
@@ -184,7 +214,7 @@ from repro_torch.serve.traffic import (  # noqa: E402
 )
 import repro_torch.run as run_cli  # noqa: E402
 from repro_torch.arms import fused as fused_lib, runners  # noqa: E402
-from repro_torch.arms.base import poisson_batch  # noqa: E402
+from repro_torch.arms.base import batch_loss_fn, poisson_batch  # noqa: E402
 from repro_torch.core import dp as dp_lib, secagg  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     make_gemini_like,
@@ -192,6 +222,10 @@ from repro_torch.data import (  # noqa: E402
     make_xray_like,
 )
 from repro_torch.models import tabular  # noqa: E402
+import repro_torch.obs as obs  # noqa: E402
+from repro_torch.core import mia as mia_lib  # noqa: E402
+from repro_torch.core.leader import leader_schedule  # noqa: E402
+from repro_torch.sim import heterogeneous_trace, nodes_from_trace  # noqa: E402
 
 ARCH = "smollm-360m"
 SEED = 0
@@ -1914,7 +1948,8 @@ def _argmax_accuracy(model, params, silos) -> float:
 def tabular_main_path(dev, smi) -> dict:
     """The paper's three case studies with DeCaPH behind SecAgg at paper
     scale, the pancreas round in its parts, and the CLI on the card.
-    Returns the pancreas model, silos and trained parameters."""
+    Returns the pancreas model, silos, report and trained parameters, and
+    the GEMINI model and silos."""
     t0 = time.perf_counter()
     silos = arms.normalize_participants(make_pancreas_like(**PANCREAS["data"]))
     data_s = time.perf_counter() - t0
@@ -1955,7 +1990,9 @@ def tabular_main_path(dev, smi) -> dict:
     say(f"tabular CLI: repro_torch.run.main(['--arm', 'decaph', '--rounds', "
         f"'3']) on the card by default: rc 0 in "
         f"{time.perf_counter() - t0:.2f} s")
-    return {"model": model, "silos": silos, "params": params}
+    return {"model": model, "silos": silos, "params": params,
+            "report": out["report"],
+            "gemini": {"model": gmodel, "silos": gsilos}}
 
 
 # -- 14. the tabular whole path: SecAgg against the plain sum, ghost vs faithful --
@@ -2057,6 +2094,376 @@ def tabular_whole_path(dev, smi, pancreas) -> None:
                              "pancreas MLP")
 
 
+# -- 15. the comparison arms at the paper's scale --------------------------------
+
+# every other arm on phase 13's GEMINI configuration (the node arms take
+# gossip_steps=3), and primia through the ghost_norm kernel at full width
+ARMS_GEMINI = [("fl", {}), ("fl", {"fl_local_steps": 3}), ("fedprox", {}),
+               ("scaffold", {}), ("primia", {}), ("local", {}),
+               ("gossip", {}), ("gossip-dp", {})]
+PRIMIA_LM = dict(TRAIN, rounds=2)        # phase 6's silos, batch and sigma
+
+
+def _arm_label(name, kw) -> str:
+    return name + "".join(f" {k}={v}" for k, v in kw.items())
+
+
+def _client_epsilons(arm, rounds: int) -> list[tuple[float, float]]:
+    """(arm's ε, a fresh RDPAccountant's ε) per client of a per-client-DP
+    arm (primia, gossip-dp) after ``rounds`` steps each."""
+    out = []
+    for rate, acct in zip(arm.rates, arm.accts):
+        fresh = RDPAccountant(sampling_rate=rate,
+                              noise_multiplier=arm.cfg.dp.noise_multiplier,
+                              delta=arm.cfg.dp.delta)
+        fresh.step(rounds)
+        out.append((acct.epsilon(), fresh.epsilon()))
+    return out
+
+
+def _pooled_loss(model, params, silos) -> float:
+    """Mean per-example loss of ``params`` over every silo's examples."""
+    x = torch.from_numpy(np.concatenate([p.x for p in silos]))
+    y = torch.from_numpy(np.concatenate([p.y for p in silos]))
+    dev = tree_leaves(params)[0].device
+    with torch.no_grad():
+        loss = batch_loss_fn(model)(params, {"x": x.to(dev), "y": y.to(dev)})
+    return float(loss.double().mean())
+
+
+def _run_arm(arm, dev) -> tuple[arms.RunReport, list[float], int]:
+    """One arm object on ``ideal`` (as ``arms.run`` runs it): the report,
+    its round walls (synchronised at each round's end) and its program
+    calls."""
+    marks = []
+
+    def on_round(t, params):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    reset_jit_dispatches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = arms.LocalRunner(on_round=on_round).run(arm)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    walls = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    return report, walls or [end - t0], jit_dispatches()
+
+
+def comparison_arms_path(dev, smi, gemini) -> int:
+    """Phase 15: the paper's comparison arms on GEMINI at paper scale (ε,
+    one program call per fused round, the per-participant path against
+    the fused round at sigma 0), then primia on SmolLM-360M at full width
+    through ``ghost_norm``; returns that run's ghost_norm launches."""
+    model, silos = gemini["model"], gemini["silos"]
+    case = GEMINI
+    n_examples = sum(len(p) for p in silos)
+    for name, kw in ARMS_GEMINI:
+        cfg = dataclasses.replace(_tabular_cfg(case, use_secagg=False),
+                                  gossip_steps=case["rounds"], **kw)
+        arm_cls = arms.get(name)
+        arm = arm_cls(model, silos, cfg)
+        report, walls, calls = _run_arm(arm, dev)
+        rounds = case["rounds"]
+        if report.rounds_completed != rounds or not all(
+                bool(torch.isfinite(p).all())
+                for p in tree_leaves(report.params)):
+            raise AssertionError(f"{name}: {report.rounds_completed} rounds "
+                                 "or non-finite parameters")
+        if arm_cls.mode == "round" and calls != rounds:
+            raise AssertionError(f"{name}: {calls} program calls for "
+                                 f"{rounds} fused rounds")
+        eps_note = ""
+        if arm_cls.private:
+            pairs = _client_epsilons(arm, rounds)
+            if any(a != b for a, b in pairs) or \
+                    report.epsilon != max(b for _, b in pairs):
+                raise AssertionError(f"{name}: per-client ε {pairs} vs the "
+                                     f"accountants', run ε {report.epsilon}")
+            eps_note = (f", every client's ε its own accountant's (max "
+                        f"{report.epsilon:.6f})")
+        elif report.epsilon != 0.0:
+            raise AssertionError(f"{name}: ε {report.epsilon} for a "
+                                 "non-private arm")
+        losses = [l.loss for l in report.logs]
+        say(f"arms {_arm_label(name, kw)}: GEMINI MLP, {len(silos)} hospitals"
+            f" ({n_examples:,} examples), batch {case['batch_size']}, sigma "
+            f"{case['sigma']}, on {smi}: {report.rounds_completed} rounds, "
+            f"logged losses {[round(x, 4) for x in losses]} (NaN where the "
+            f"arm logs none, as in the reference), pooled loss after "
+            f"{_pooled_loss(model, report.params, silos):.4f}, ε "
+            f"{report.epsilon:.6f}{eps_note}, {calls} program calls "
+            f"({calls / rounds:g} per round), wall s "
+            f"{[round(x, 4) for x in walls]}, pooled accuracy "
+            f"{tabular.pooled_accuracy(model, report.params, silos):.4f}")
+    for name in ("fl", "primia"):
+        cfg = _tabular_cfg(case, sigma=0.0, use_secagg=False)
+        fused = arms.run(name, model, silos, cfg)
+        loop = arms.run(name, model, silos,
+                        dataclasses.replace(cfg, fused_rounds=False))
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(fused.params), tree_leaves(loop.params)))
+        say(f"arms {name} per-participant path: fused_rounds=False vs the "
+            f"fused round at sigma 0, GEMINI, 3 rounds, on {smi}: max "
+            f"|difference| {diff:.3e} (limit 1e-5)")
+        if not diff <= 1e-5:
+            raise AssertionError(f"{name}: the per-participant path is "
+                                 f"{diff} off the fused round")
+
+    mcfg = get_config(ARCH).replace(tie_embeddings=False)
+    lm = transformer_model(mcfg, device=str(dev))
+    lm_silos = _silos(mcfg)
+    cfg = _train_cfg(PRIMIA_LM["rounds"], PRIMIA_LM["sigma"])
+    arm = arms.get("primia")(lm, lm_silos, cfg)
+    if arm.clipping_path != "ghost":
+        raise AssertionError(f"primia took {arm.clipping_path} clipping")
+    ghost_ops.reset_launches()
+    report, walls, calls = _run_arm(arm, dev)
+    launches = ghost_ops.launches()
+    per_participant = 7 * mcfg.n_layers + 1
+    expected = per_participant * PRIMIA_LM["hospitals"] * PRIMIA_LM["rounds"]
+    if launches != expected:
+        raise AssertionError(f"primia: ghost_norm launched {launches} times, "
+                             f"expected {expected}")
+    pairs = _client_epsilons(arm, PRIMIA_LM["rounds"])
+    if report.rounds_completed != PRIMIA_LM["rounds"] or \
+            calls != PRIMIA_LM["rounds"] or any(a != b for a, b in pairs):
+        raise AssertionError(f"primia: {report.rounds_completed} rounds, "
+                             f"{calls} program calls, ε {pairs}")
+    if not all(bool(torch.isfinite(p).all())
+               for p in tree_leaves(report.params)):
+        raise AssertionError("primia: non-finite parameters")
+    say(f"arms primia: {ARCH} untied head, full width, "
+        f"{PRIMIA_LM['hospitals']} hospitals x {PRIMIA_LM['n_per']} x "
+        f"{PRIMIA_LM['seq_len']} tokens, batch {PRIMIA_LM['batch_size']} "
+        f"({PRIMIA_LM['batch_size'] // PRIMIA_LM['hospitals']} per client),"
+        f" sigma {PRIMIA_LM['sigma']}, ghost clipping, on {smi}: "
+        f"{report.rounds_completed} rounds, ghost_norm launches {launches} "
+        f"({per_participant} per participant and round), {calls} program "
+        f"calls, every client's ε its own accountant's "
+        f"({pairs[0][0]:.6f}), round wall s {[round(x, 4) for x in walls]}")
+    return launches
+
+
+# -- 16. the simulated-time backend: DeCaPH with dropout-robust SecAgg ------------
+
+
+def _checked_sim_sums(worst: list):
+    """``_SimServices.sum_payloads`` that holds each secure total (with its
+    top-up, if any) against the float64 sum of the delivered payloads plus
+    the top-up: within n half-steps of the fixed-point grid, plus the
+    float32 roundings of the decode and of the top-up's add.  Appends
+    (survivors, topped up, max |error|, max error / limit) per round."""
+    real = runners._SimServices.sum_payloads
+
+    def checked(self, payloads):
+        out = real(self, payloads)
+        trees = [payloads[i] for i in sorted(payloads)]
+        ref = _sum_tree(trees, lambda a: a)
+        if self._topup is not None:
+            for acc, t in zip(ref, tree_leaves(self._topup)):
+                acc += t.double().cpu().numpy()
+        step = 2.0 ** -(self._session.cfg.frac_bits + 1)
+        err = ratio = 0.0
+        for want, got in zip(ref, tree_leaves(out)):
+            got = got.cpu().numpy().astype(np.float64)
+            diff = np.abs(got - want)
+            limit = len(trees) * step + 3 * F32_EPS * np.abs(got)
+            if diff.size:
+                err = max(err, float(diff.max()))
+                ratio = max(ratio, float((diff / limit).max()))
+        worst.append((len(trees), self._topup is not None, err, ratio))
+        if ratio > 1.0:
+            raise AssertionError(f"sim secure sum off the payloads' float64 "
+                                 f"sum by {err:.3e}, {ratio:.3f} x its limit")
+        return out
+
+    return checked
+
+
+def _sim_run(model, silos, cfg, nodes):
+    """``arms.run(..., backend="sim")`` with every secure sum checked, the
+    obs spans recorded and each round's upload window kept; returns
+    (report, checks, span totals, [(start, end) simulated s], wall s)."""
+    checks: list = []
+    windows: list = []
+    real_gather = runners.SimRunner._gather_round
+
+    def gather(self, engine, dst, work):
+        start = engine.now
+        out = real_gather(self, engine, dst, work)
+        windows.append((start, engine.now))
+        return out
+
+    with obs.recording() as rec, mock.patch.object(
+            runners._SimServices, "sum_payloads", _checked_sim_sums(checks)), \
+            mock.patch.object(runners.SimRunner, "_gather_round", gather):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = arms.run("decaph", model, silos, cfg, backend="sim",
+                          nodes=nodes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spans = rec.span_totals()
+    return report, checks, spans, windows, wall
+
+
+def _timing(report) -> str:
+    t = report.timing
+    return (f"sim wall {t.wall_clock:.3f} s, {t.bytes_on_wire:,.0f} bytes on "
+            f"the wire, {t.dropout_events} dropouts, {t.recoveries} "
+            f"recoveries, {t.noise_topups} top-ups, {t.lost_rounds} lost "
+            f"rounds, {t.events} events")
+
+
+def sim_path(dev, smi, pancreas) -> None:
+    """Phase 16: phase 13's pancreas DeCaPH on ``sim`` with SecAgg — on a
+    clean heterogeneous trace bit for bit phase 13's ``ideal`` run, then
+    with a hospital dropping out during round 1's upload: recovered,
+    topped up, within the fixed-point limit, ε the accountant's."""
+    case, model, silos = PANCREAS, pancreas["model"], pancreas["silos"]
+    h = len(silos)
+    cfg = _tabular_cfg(case)
+    ideal = pancreas["report"]
+    clean, checks, spans, windows, wall = _sim_run(
+        model, silos, cfg, nodes_from_trace(heterogeneous_trace(h)))
+    same = clean.rounds_completed == ideal.rounds_completed and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(clean.params),
+                                          tree_leaves(ideal.params))) and \
+        [l.loss for l in clean.logs] == [l.loss for l in ideal.logs]
+    say(f"sim clean: pancreas MLP, {h} hospitals, SecAgg "
+        f"(dropout-robust session), heterogeneous_trace({h}), on {smi}: "
+        f"{clean.rounds_completed} rounds, {_timing(clean)}; parameters and "
+        f"losses bit-identical to phase 13's ideal run: {same}; host wall "
+        f"{wall:.2f} s")
+    if not same:
+        raise AssertionError("sim and ideal disagree under a clean trace")
+    # the slowest hospital that does not lead round 1 (the last upload to
+    # land) drops out a quarter into round 1's upload window of the clean
+    # run, and rejoins between that window and round 2's
+    leader = int(leader_schedule(h, case["rounds"], seed=SEED)[1])
+    drop = h - 1 if leader != h - 1 else h - 2
+    (start, end), (next_start, _) = windows[1], windows[2]
+    t_off, t_on = start + 0.25 * (end - start), (end + next_start) / 2
+    trace = heterogeneous_trace(h)
+    trace[drop] = dict(trace[drop], dropouts=[[t_off, t_on]])
+    report, checks, spans, _, wall = _sim_run(model, silos, cfg,
+                                              nodes_from_trace(trace))
+    t = report.timing
+    acct = RDPAccountant(
+        sampling_rate=case["batch_size"] / sum(len(p) for p in silos),
+        noise_multiplier=case["sigma"], delta=cfg.dp.delta)
+    acct.step(report.rounds_completed)
+    ms = {k: 1e3 * spans.get(k, (0, 0.0))[1]
+          for k in ("secagg.recover", "noise_topup", "secagg.encode",
+                    "aggregate", "fused_round")}
+    say(f"sim dropout: hospital {drop} off from {t_off:.3f} to {t_on:.3f} "
+        f"simulated s (round 1's uploads {start:.3f}-{end:.3f} s), on {smi}: "
+        f"{report.rounds_completed} rounds, {_timing(report)}; secure sums "
+        f"(survivors, topped up, max |error|, / limit) "
+        f"{[(n, tu, float(f'{e:.3e}'), round(r, 3)) for n, tu, e, r in checks]};"
+        f" ε {report.epsilon:.6f} (accountant {acct.epsilon():.6f}); host ms: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+        + f"; host wall {wall:.2f} s")
+    if t.recoveries < 1 or t.noise_topups < 1 or not any(
+            tu and n < h for n, tu, _, _ in checks):
+        raise AssertionError("the dropout run recovered or topped up nothing")
+    if report.rounds_completed != case["rounds"] or \
+            report.epsilon != acct.epsilon():
+        raise AssertionError(f"{report.rounds_completed} rounds, ε "
+                             f"{report.epsilon} != {acct.epsilon()}")
+
+
+# -- 17. the privacy audit (Fig. 5): LiRA on FL and DP targets -------------------
+
+# benchmarks/mia.py's fast scale
+MIA = dict(n=400, steps=60, shadows=8, sizes=[436, 64, 16, 1], lr=1.0,
+           clip=1.0, sigma=0.8, batch=64, microbatch=16)
+
+
+def _mia_train_fn(model, dev, *, private: bool):
+    """``lira_attack``'s ``train_fn(x, y, seed)``: plain or DP-SGD steps of
+    ``model`` on the card (the port's ``core.dp`` clipped sum and noise),
+    from ``model.init_fn(seed)``, as ``benchmarks/mia.py`` trains."""
+    case = MIA
+    batch_loss = batch_loss_fn(model)
+    mean_grad = torch.func.grad(lambda p, b: torch.mean(batch_loss(p, b)))
+
+    def train_fn(x, y, seed):
+        params = model.init_fn(seed)
+        xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        n, bs = len(x), min(case["batch"], len(x))
+        rng = np.random.default_rng(seed)
+        for t in range(case["steps"]):
+            idx = torch.from_numpy(rng.choice(n, bs, replace=False)).to(dev)
+            batch = {"x": xd[idx], "y": yd[idx]}
+            if private:
+                g, _ = dp_lib.per_example_clipped_grad_sum(
+                    model.loss_fn, params, batch, clip_norm=case["clip"],
+                    microbatch_size=case["microbatch"])
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(dp_lib.noise_seed(seed, t))
+                g = dp_lib.tree_add_noise(
+                    g, gen, clip_norm=case["clip"],
+                    noise_multiplier=case["sigma"])
+                g = tree_map(lambda v: v / bs, g)
+            else:
+                g = mean_grad(params, batch)
+            params = tree_map(lambda p_, g_: p_ - case["lr"] * g_, params, g)
+        return params
+
+    return train_fn
+
+
+def mia_path(dev, smi) -> None:
+    """Phase 17: LiRA (``core.mia.lira_attack``) against an FL-trained and
+    a DP-trained target, every shadow and target trained on the card."""
+    case = MIA
+    silos = make_gemini_like(seed=SEED, n_total=case["n"])
+    x = np.concatenate([p.x for p in silos])[: case["n"]]
+    y = np.concatenate([p.y for p in silos])[: case["n"]]
+    x = ((x - x.mean(0)) / (x.std(0) + 1e-8)).astype(np.float32)
+    model = tabular.make_mlp_classifier(case["sizes"], "binary",
+                                        device=str(dev))
+
+    def confidence(params, xq, yq):
+        with torch.no_grad():
+            p = model.predict_fn(params, torch.from_numpy(xq).to(dev))
+        p = p.cpu().numpy()
+        return np.where(yq > 0.5, p, 1 - p)
+
+    results = {}
+    for arm, private in (("fl", False), ("decaph", True)):
+        train = _mia_train_fn(model, dev, private=private)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mia_lib.lira_attack(train, confidence, x, y,
+                                  n_shadows=case["shadows"], seed=SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fpr, tpr = mia_lib.roc_curve(res.scores, res.membership)
+        ok = (0.0 <= res.auroc <= 1.0 and 0.0 <= res.tpr_at_1pct_fpr <= 1.0
+              and bool(np.isfinite(res.scores).all())
+              and bool((np.diff(fpr) >= 0).all())
+              and bool((np.diff(tpr) >= 0).all()))
+        say(f"mia {arm}: LiRA, {case['shadows']} shadows + 1 target, "
+            f"n {case['n']}, {case['steps']} steps of MLP "
+            f"{'-'.join(map(str, case['sizes']))}, lr {case['lr']}"
+            + (f", DP C {case['clip']} sigma {case['sigma']}" if private
+               else "") + f", on {smi}: AUROC {res.auroc:.4f}, TPR at 1% "
+            f"FPR {res.tpr_at_1pct_fpr:.4f}, {int(res.membership.sum())} "
+            f"members, wall {wall:.2f} s "
+            f"({'ok' if ok else 'FAIL'})")
+        if not ok:
+            raise AssertionError(f"mia {arm}: AUROC {res.auroc}, TPR "
+                                 f"{res.tpr_at_1pct_fpr}, or a decreasing "
+                                 "ROC curve")
+        results[arm] = res.auroc
+    say(f"mia gap: AUROC FL - DP = {results['fl'] - results['decaph']:+.4f} "
+        f"(printed only: {case['shadows']} shadows are too few to decide it)")
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -2106,6 +2513,14 @@ def main() -> int:
     pancreas = tabular_main_path(dev, smi)
     torch.cuda.empty_cache()
     tabular_whole_path(dev, smi, pancreas)
+    torch.cuda.empty_cache()
+    launches["ghost_norm"] += comparison_arms_path(dev, smi,
+                                                   pancreas["gemini"])
+    torch.cuda.empty_cache()
+    sim_path(dev, smi, pancreas)
+    del pancreas
+    torch.cuda.empty_cache()
+    mia_path(dev, smi)
     lines = [{**k, "launches": launches[k["name"]],
               "max_abs_err": worst[k["name"]], **times[k["name"]]}
              for k in KERNELS]

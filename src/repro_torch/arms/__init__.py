@@ -22,11 +22,19 @@ or, the paper's own experiments (DP noise shares behind SecAgg, the
                       arms.normalize_participants(make_pancreas_like(...)),
                       arms.ArmConfig(rounds=3))
 
-Ported so far: the ``decaph`` arm on the ``ideal`` backend (the fused
-cohort round, ghost or per-example clipping, noise shares, fixed-point
-SecAgg over the shares and the batch sizes, the RDP accountant and the
-privacy ledger).  The simulated-time backend (with dropout-robust SecAgg)
-and the other arms are still to port (ROADMAP.md, Queue 1 item 5b).
+or under simulated time, with hospitals that run at different speeds and
+drop out (dropout-robust SecAgg recovers their pads):
+
+    from repro_torch.sim import heterogeneous_trace, nodes_from_trace
+
+    timed = arms.run("decaph", model, silos, cfg, backend="sim",
+                     nodes=nodes_from_trace(heterogeneous_trace(len(silos))))
+
+Registered arms, as in the reference: decaph, fl (FedSGD/FedAvg), fedprox
+(proximal-term FedAvg), scaffold (control-variate FedAvg), primia
+(local-DP FL), local (silo-only), gossip (async D-PSGD), gossip-dp
+(local-DP D-PSGD).  Registered backends: ``ideal`` and ``sim``
+(``backends.backend_names()``).
 """
 
 from __future__ import annotations
@@ -35,13 +43,14 @@ from typing import Sequence
 
 import repro_torch.obs as obs
 from repro_torch.arms import backends, clipping
-from repro_torch.arms.backends import BackendInfo
+from repro_torch.arms.backends import BackendInfo, RunSetup, register_backend
 from repro_torch.arms.base import (
     AggregationServices,
     Arm,
     ArmConfig,
     Contribution,
     Model,
+    NodeArm,
     Participant,
     RoundArm,
     RoundOutcome,
@@ -53,26 +62,39 @@ from repro_torch.arms.base import (
 )
 from repro_torch.arms.clipping import GhostCapability
 from repro_torch.arms.registry import get, names, register
-from repro_torch.arms.results import RoundLog, RunReport
-from repro_torch.arms.runners import LocalRunner
+from repro_torch.arms.results import RoundLog, RunReport, SimTiming
+from repro_torch.arms.runners import LocalRunner, SimRunner, default_topology
 
 # importing the arm modules is what registers them
-from repro_torch.arms import decaph as _decaph  # noqa: F401
+from repro_torch.arms import decaph as _decaph          # noqa: F401
+from repro_torch.arms import fedprox as _fedprox        # noqa: F401
+from repro_torch.arms import fl as _fl                  # noqa: F401
+from repro_torch.arms import gossip as _gossip          # noqa: F401
+from repro_torch.arms import gossip_dp as _gossip_dp    # noqa: F401
+from repro_torch.arms import local as _local            # noqa: F401
+from repro_torch.arms import primia as _primia          # noqa: F401
+from repro_torch.arms import scaffold as _scaffold      # noqa: F401
 
 
 def run(name: str, model: Model, participants: Sequence[Participant],
         cfg: ArmConfig, *, backend: str = backends.DEFAULT_BACKEND,
-        on_round=None) -> RunReport:
+        nodes=None, topo=None, on_round=None) -> RunReport:
     """Instantiate arm ``name`` and execute it on the chosen backend.
 
-    The (arm, backend, config) triple and the clipping path are validated
-    before any compute; ``on_round(t, params)`` is called after every
-    completed round.
+    ``backend`` is any name from ``backends.backend_registry()``; the
+    (arm, backend, config) triple and the clipping path are validated
+    before any compute.  Each backend consumes the ``RunSetup`` fields it
+    understands — ``nodes`` (one ``HospitalNode`` per participant) for
+    simulated time — and rejects what it requires but did not get.
+    ``topo`` defaults to the arm's natural topology; ``on_round(t, params)``
+    is called after every completed round.
     """
     arm_cls = get(name)
-    backends.validate_run(arm_cls, backend, cfg)
+    backend_cls = backends.get_backend(backend)
+    backends.validate_run(arm_cls, backend_cls.info, cfg)
     clipping.resolve(model, cfg)
-    runner = LocalRunner(on_round=on_round)
+    runner = backend_cls.from_setup(
+        RunSetup(nodes=nodes, topo=topo, on_round=on_round))
     with obs.span("arms.run", cat="train", arm=name, backend=backend,
                   hospitals=len(participants)):
         return runner.run(arm_cls(model, participants, cfg))
@@ -87,18 +109,24 @@ __all__ = [
     "GhostCapability",
     "LocalRunner",
     "Model",
+    "NodeArm",
     "Participant",
     "RoundArm",
     "RoundLog",
     "RoundOutcome",
     "RunReport",
+    "RunSetup",
+    "SimRunner",
+    "SimTiming",
     "backends",
     "clipping",
+    "default_topology",
     "get",
     "names",
     "normalize_participants",
     "poisson_batch",
     "register",
+    "register_backend",
     "run",
     "sgd_update",
     "tree_bytes",

@@ -1,17 +1,21 @@
 """The Arm/Backend contract: write an arm's numerics once, run it anywhere.
 
-Counterpart of ``repro.arms.base`` for round arms.  An ``Arm`` declares
-*what* a federation protocol computes each round — local updates,
-aggregation rule, privacy accounting — and nothing about *when*; a
-backend (``repro_torch.arms.runners``) executes it.  The port has one
-backend so far, the idealized lockstep ``LocalRunner``; node arms
-(gossip) and the simulated-time backend are still to port.
+Counterpart of ``repro.arms.base``.  An ``Arm`` declares *what* a
+federation protocol computes each round — local updates, aggregation rule,
+privacy accounting, what goes on the wire — and nothing about *when*; a
+backend (``repro_torch.arms.runners``) executes it: the idealized lockstep
+``LocalRunner`` or the discrete-event ``SimRunner``.  An arm never
+observes simulated time, node availability or the engine, so the two
+backends produce the same trajectory whenever the simulated conditions are
+ideal.
 
 Randomness rules, as in the reference:
 
   * round arms share one host ``np.random.Generator`` consumed strictly in
     (round, ascending participant index) order — the Poisson draws are
     the reference's, number for number;
+  * node arms hold one independent stream per node (the event backend
+    interleaves nodes in simulated-time order);
   * noise generators are seeded by a pure function of (seed, salt + round,
     participant index) (``core.dp.noise_seed``) and therefore never depend
     on execution order.
@@ -87,9 +91,8 @@ def normalize_participants(parts: Sequence[Participant]) -> list[Participant]:
 
 @dataclasses.dataclass
 class ArmConfig:
-    """One config for every round arm: the reference's fields that the
-    ported arms read (the simulation and other arms' knobs come with their
-    slices)."""
+    """One config for every arm on every backend (the reference's fields);
+    arm-specific knobs are ignored by arms that do not use them."""
 
     rounds: int = 100
     batch_size: int = 64           # desired aggregate mini-batch size B
@@ -99,12 +102,22 @@ class ArmConfig:
     epsilon_budget: float | None = None   # stop when the accountant exceeds it
     use_secagg: bool = True        # run the real fixed-point SecAgg protocol
     secagg_frac_bits: int = 16
+    secagg_threshold: int | None = None  # None -> majority of round's cohort
+    fl_local_steps: int = 1        # >1 = FedAvg (weight averaging) for "fl"
+    fedprox_mu: float = 0.1        # proximal-term weight for "fedprox"
     leader_strategy: str = "uniform"
+    fused_rounds: bool = True      # cohort step (False: per participant)
     participation_rate: float = 1.0  # < 1 is refused: no backend subsamples
     clipping: str = "auto"         # "auto" | "ghost" | "per-example"
     seed: int = 0
+    eval_every: int = 0            # 0 = never (the population backend's)
     max_pad_batch: int | None = None  # static padded per-silo batch
-    bytes_per_param: float = 4.0   # ledger bytes_up per parameter
+    # systems knobs (bytes also feed the ledger on every backend)
+    bytes_per_param: float = 4.0
+    fl_server: int = 0             # star hub for fl/fedprox/scaffold/primia
+    # gossip-family knobs
+    gossip_steps: int | None = None  # local steps per node; None -> rounds
+    gossip_every: int = 1            # exchange after every k-th local step
 
 
 # -- shared numerics helpers -------------------------------------------------
@@ -158,6 +171,19 @@ def tree_sum(trees: Sequence[Tree]) -> Tree:
     return total
 
 
+def batch_loss_fn(model: Model) -> Callable[[Tree, Tree], torch.Tensor]:
+    """``fn(params, {"x": [B, ...], "y": [B]})``: every example's loss under
+    ``torch.func.vmap`` of ``model.loss_fn``, as the reference's
+    ``jax.vmap`` gives them — a [B] vector."""
+    return lambda params, batch: torch.func.vmap(
+        lambda ex: model.loss_fn(params, ex))(batch)
+
+
+def host_batch(batch: dict[str, np.ndarray], device) -> dict:
+    """A numpy batch dict as tensors on ``device``."""
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
 def tree_div(tree: Tree, d: float) -> Tree:
     """Elementwise ``x / d`` (not ``x * (1/d)``, as the reference)."""
     return tree_map(lambda x: x / d, tree)
@@ -183,9 +209,9 @@ def default_pad(rate: float, participants: Sequence[Participant],
 @dataclasses.dataclass
 class Contribution:
     """What one participant produces in one round: the ``payload`` tree that
-    goes on the wire (host numpy views for SecAgg; None while it stays
-    inside the fused round's reduced sum), ``size`` real examples consumed,
-    optional ``loss``."""
+    goes on the wire (host numpy views for SecAgg, device tensors for the
+    simulated transport; None while it stays inside the fused round's
+    reduced sum), ``size`` real examples consumed, optional ``loss``."""
 
     payload: Tree | None
     size: int
@@ -205,11 +231,14 @@ class RoundOutcome:
 class AggregationServices:
     """Backend-provided aggregation primitives (DESIGN.md §5).
 
-    ``fused_reduced`` is the cohort aggregate the fused round-step already
-    reduced on the device (None when the payloads go through SecAgg).
+    Secure aggregation is a backend service: the idealized backend runs
+    ``SecAggSession`` over every payload, the simulated-time backend the
+    dropout-robust session over the ciphertexts that arrived.  Arms only
+    ever say "sum these".  ``fused_reduced`` is the cohort aggregate the
+    fused round-step already reduced on the device (None: sum it yourself).
     """
 
-    fused_reduced: Tree | None
+    fused_reduced: Tree | None = None
 
     def sum_sizes(self, sizes: Sequence[int]) -> int:  # pragma: no cover
         raise NotImplementedError
@@ -223,10 +252,12 @@ class AggregationServices:
 
 
 class Arm:
-    """Base for all arms.  Subclass ``RoundArm``, not this."""
+    """Base for all arms.  Subclass ``RoundArm`` or ``NodeArm``, not this."""
 
     name: str = ""
     mode: str = ""                 # "round" | "node"
+    private: bool = False          # has an accountant / nonzero epsilon
+    topology_kind: str = "full"    # natural sim topology: full | star | ring
 
     def __init__(self, model: Model, participants: Sequence[Participant],
                  cfg: ArmConfig) -> None:
@@ -254,7 +285,13 @@ class RoundArm(Arm):
 
     mode = "round"
     secure_uploads = False        # payloads go through SecAgg when enabled
+    requires_dst_online = False   # star hub must survive the whole round
     void_logs = False             # log a NaN round when nothing aggregates
+    empty_break = False           # empty cohort ends the run (vs skipping)
+    fused_capable = False         # overrides fused_round
+    distributed_noise = False     # DP noise rides per-participant shares, so
+                                  # a lost upload under-noises the sum (the
+                                  # backend owes a top-up)
 
     def clipped_grad_sum_fn(self, pad: int):
         """Model-aware clipped-grad-sum seam (DESIGN.md §12): the ghost path
@@ -267,9 +304,15 @@ class RoundArm(Arm):
         return clipping_lib.clipped_grad_sum_fn(self.model, self.cfg, pad)
 
     def planned_rounds(self) -> int:
+        """Round cap (e.g. pre-computed epsilon budget)."""
         return self.cfg.rounds
 
+    def quorum(self) -> tuple[int, int | None]:
+        """(minimum online nodes, required node index or None) to start."""
+        return 1, None
+
     def participates(self, i: int, t: int) -> bool:
+        """Eligibility beyond availability (e.g. local budget exhausted)."""
         return True
 
     def facilitator(self, t: int, active: Sequence[int]) -> int:
@@ -278,17 +321,34 @@ class RoundArm(Arm):
     def init_params(self) -> Tree:
         return self.model.init_fn(self.cfg.seed)
 
+    def contribution(self, params: Tree, i: int, t: int,
+                     rng: np.random.Generator, n_shares: int
+                     ) -> Contribution | None:
+        """Participant ``i``'s upload for round ``t`` (None = sits out), a
+        device tree: the per-participant path (``fused_rounds=False``).
+        The port's cohort step is already a loop over the cohort, so this
+        is that step on a cohort of one — the same draws from ``rng``, the
+        same numbers, one program call and one host sync per participant.
+        """
+        contribs, _ = self.fused_round(params, [i], t, rng, n_shares,
+                                       payloads="device")
+        return contribs.get(i)
+
     def fused_round(self, params: Tree, active: Sequence[int], t: int,
                     rng: np.random.Generator, n_shares: int,
-                    payloads: bool = False
+                    payloads: str | None = None
                     ) -> tuple[dict[int, Contribution], Tree | None]:
         """The cohort-batched round step (DESIGN.md §7): every active
         participant's contribution in ONE program call with ONE host sync.
-        Consumes ``rng`` in (round, ascending participant index) order.
-        With ``payloads`` (SecAgg uploads) every participant's payload comes
-        to the host in the same one copy, as numpy views, and no reduced sum
-        is returned; otherwise the payloads stay on the device inside the
-        cohort aggregate reduced there (``payload`` is None)."""
+        Consumes ``rng`` in (round, ascending participant index) order,
+        exactly as the ``contribution`` loop would.
+
+        ``payloads`` says what the backend consumes: None, the cohort
+        aggregate reduced on the device (each ``payload`` None); "host"
+        (SecAgg uploads), every participant's payload brought to the host
+        in the same one copy as the losses, as numpy views; "device" (the
+        simulated transport), every participant's payload as its own
+        device tree.  Neither of the last two returns a reduced sum."""
         raise NotImplementedError
 
     def aggregate(self, params: Tree, contributions: Mapping[int, Contribution],
@@ -297,3 +357,43 @@ class RoundArm(Arm):
 
     def account(self) -> None:
         """Advance the accountant after a stepped round (no-op by default)."""
+
+
+class NodeArm(Arm):
+    """Per-node arm: independent models, local steps, optional gossip mixing.
+
+    The backend drives the step loop (lockstep when idealized, event-ordered
+    under simulated time) and performs the pairwise model averaging; the arm
+    owns the local update and the exchange cadence/peer choice.
+    """
+
+    mode = "node"
+    topology_kind = "ring"
+
+    def steps_total(self) -> int:
+        return self.cfg.gossip_steps or self.cfg.rounds
+
+    def step_cost(self, i: int) -> int:
+        """Examples one local step processes (sim compute-time model)."""
+        return min(self.cfg.batch_size, len(self.participants[i]))
+
+    def init_node_params(self, i: int) -> Tree:
+        raise NotImplementedError
+
+    def local_step(self, i: int, params_i: Tree, s: int
+                   ) -> tuple[Tree, torch.Tensor, int] | None:
+        """One local step: (new params, loss as a 0-d device tensor, examples)
+        or None = retired.  The loss stays on the device: the backend syncs
+        a lockstep's losses once, or never (simulated time)."""
+        raise NotImplementedError
+
+    def wants_exchange(self, i: int, steps_done: int) -> bool:
+        return False
+
+    def select_peer(self, i: int, neighbors: Sequence[int]) -> int | None:
+        return None
+
+    def consensus(self, per_node_params: list[Tree]
+                  ) -> tuple[Tree, list[Tree]]:
+        """(headline params, per-node params) once every node finished."""
+        return per_node_params[0], per_node_params

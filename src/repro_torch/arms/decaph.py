@@ -50,8 +50,12 @@ _NOISE_STREAM = 17
 class DeCaPHArm(RoundArm):
     """The DeCaPH protocol (distributed-noise DP-SGD behind SecAgg)."""
 
+    private = True
     secure_uploads = True
     void_logs = True            # an empty Poisson round is logged as NaN
+    topology_kind = "full"      # any participant can facilitate
+    fused_capable = True
+    distributed_noise = True    # per-participant noise shares sum to (Cσ)²
 
     def __init__(self, model: Model, participants: Sequence[Participant],
                  cfg: ArmConfig) -> None:
@@ -88,6 +92,13 @@ class DeCaPHArm(RoundArm):
             ),
         )
 
+    def quorum(self) -> tuple[int, int | None]:
+        # running below the configured reconstruction threshold would
+        # silently weaken the operator's security choice
+        if self.cfg.use_secagg:
+            return max(2, self.cfg.secagg_threshold or 2), None
+        return 2, None
+
     def facilitator(self, t: int, active: Sequence[int]) -> int:
         leader = int(self.leaders[t])
         if leader in active:
@@ -108,10 +119,10 @@ class DeCaPHArm(RoundArm):
         )
 
     def _cohort_step(self, params, bx, by, masks, t, active, n_shares,
-                     payloads=False):
-        """Every participant's noised clipped sum (``payloads``) or else
-        their cohort total in ascending-slot order, and every participant's
-        loss; the one not returned is None."""
+                     payloads=None):
+        """Every participant's noised clipped sum (with ``payloads``) or
+        else their cohort total in ascending-slot order, and every
+        participant's loss; the one not returned is None."""
         device = tree_device(params)
         stack, losses = [], []
         for s, i in enumerate(active):
@@ -123,18 +134,14 @@ class DeCaPHArm(RoundArm):
             return stack, None, torch.stack(losses)
         return None, fused.seq_tree_sum(stack), torch.stack(losses)
 
-    def fused_round(self, params, active, t, rng, n_shares,
-                    payloads=False):
+    def fused_round(self, params, active, t, rng, n_shares, payloads=None):
         cb = fused.stack_poisson(rng, self.participants, active, self.rate,
                                  self.pad)
-        device = tree_device(params)
         stack, reduced, losses = self._fused_step(
-            params, torch.from_numpy(cb.x).to(device),
-            torch.from_numpy(cb.y).to(device),
-            torch.from_numpy(cb.masks).to(device), t, list(active), n_shares,
-            payloads)
-        return fused.build_contributions(active, losses, cb.sizes,
-                                         stack), reduced
+            params, *fused.to_device(cb, tree_device(params)), t,
+            list(active), n_shares, payloads)
+        return fused.build_contributions(active, losses, cb.sizes, stack,
+                                         payloads), reduced
 
     def aggregate(self, params, contributions: Mapping[int, Contribution],
                   services: AggregationServices) -> RoundOutcome:

@@ -13,8 +13,10 @@ Contract, as in the reference:
   * ``stack_poisson`` consumes the host rng in (round, ascending
     participant index) order, so its Poisson draws are the reference's,
     number for number;
-  * ``seq_tree_sum`` reduces the cohort in ascending-slot order, the
-    association of the eager ``tree_sum`` over slices.
+  * ``seq_tree_sum`` / ``seq_weighted_sum`` reduce the cohort in
+    ascending-slot order on the device, so the ideal backend's fused total
+    and the simulated backend's sum of delivered payloads agree bit for
+    bit.
 """
 
 from __future__ import annotations
@@ -37,18 +39,23 @@ from repro_torch.instrument import (  # noqa: F401  (re-exported)
     jit_dispatches,
     reset_jit_dispatches,
 )
-from repro_torch.tree import Tree, tree_leaves, tree_unflatten
+from repro_torch.tree import Tree, tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass
 class CohortBatch:
-    """The active cohort's Poisson draws, stacked to one static shape:
-    ``x``/``y``/``masks`` with leading axis ``n_active``, and ``sizes``,
-    the real examples of each draw as host ints."""
+    """The active cohort's Poisson draws, stacked to one static shape.
+
+    ``x``/``y``/``masks`` have leading axis ``n_active`` (plus a steps axis
+    when ``steps`` was requested); ``counts`` is each draw's real-example
+    count (int32, the same leading axes); ``sizes`` is each participant's
+    total, as host ints.
+    """
 
     x: np.ndarray
     y: np.ndarray
     masks: np.ndarray
+    counts: np.ndarray
     sizes: list[int]
 
 
@@ -62,46 +69,102 @@ def _repad(arr: np.ndarray, pad_to: int) -> np.ndarray:
 
 def stack_poisson(rng: np.random.Generator,
                   participants: Sequence[Participant],
-                  active: Sequence[int], rate: float, pad: int
+                  active: Sequence[int], rate: float | Sequence[float],
+                  pad: int | Sequence[int], steps: int | None = None
                   ) -> CohortBatch:
-    """Stack each active participant's Poisson draw to one static shape.
+    """Stack each active participant's Poisson draw(s) to one static shape.
 
-    Consumes ``rng`` in ascending participant index.  If any draw outgrew
-    the pad (``poisson_batch`` grows rather than truncates), the whole
-    cohort is re-padded to the round's max; masks keep the extra rows
-    inert.
+    Consumes ``rng`` in exactly the order the per-participant loop would:
+    ascending participant index, and (with ``steps``) each participant's
+    local steps drawn consecutively.  ``rate``/``pad`` may be sequences
+    indexed by absolute participant index (primia: every client has its
+    own rate and pad); each draw uses its own, and every row is re-padded
+    to the cohort's max, as is the whole cohort when a draw outgrew its
+    pad (``poisson_batch`` grows rather than truncates).  Masks keep the
+    extra rows inert.
     """
     t0 = obs.now()  # host-RNG phase: the one per-round host-side cost
-    draws = [poisson_batch(rng, participants[i], rate, pad) for i in active]
-    pad_to = max([pad] + [len(m) for _, m, _ in draws])
-    x = np.stack([_repad(b["x"], pad_to) for b, _, _ in draws])
-    y = np.stack([_repad(b["y"], pad_to) for b, _, _ in draws])
-    masks = np.stack([_repad(m, pad_to) for _, m, _ in draws])
+    rate_of = ((lambda i: rate) if isinstance(rate, (int, float))
+               else rate.__getitem__)
+    pad_of = (lambda i: pad) if isinstance(pad, int) else pad.__getitem__
+    k_steps = 1 if steps is None else steps
+    draws = [[poisson_batch(rng, participants[i], rate_of(i), pad_of(i))
+              for _ in range(k_steps)] for i in active]
+    pad_to = max([pad_of(i) for i in active]
+                 + [len(d[1]) for row in draws for d in row])
+
+    def gather(fn):
+        return np.stack([np.stack([fn(d) for d in row]) for row in draws])
+
+    x = gather(lambda d: _repad(d[0]["x"], pad_to))
+    y = gather(lambda d: _repad(d[0]["y"], pad_to))
+    masks = gather(lambda d: _repad(d[1], pad_to))
+    counts = np.asarray([[d[2] for d in row] for row in draws], np.int32)
+    sizes = [int(c) for c in counts.sum(axis=1)]
+    if steps is None:  # collapse the singleton steps axis
+        x, y, masks, counts = x[:, 0], y[:, 0], masks[:, 0], counts[:, 0]
     obs.complete("host_rng.stack_poisson", t0, cat="rng",
                  cohort=len(active), pad=pad_to)
-    return CohortBatch(x=x, y=y, masks=masks,
-                       sizes=[int(k) for _, _, k in draws])
+    return CohortBatch(x=x, y=y, masks=masks, counts=counts, sizes=sizes)
 
 
-# The port's cohort stack is a list of trees, so the in-program reduction is
-# the eager ascending-order sum itself: bit for bit the sum a backend would
-# take over delivered slices.
-seq_tree_sum = tree_sum
+def to_device(cb: CohortBatch, device) -> tuple[torch.Tensor, ...]:
+    """``x``, ``y`` and ``masks`` of ``cb`` as tensors on ``device``."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (cb.x, cb.y, cb.masks))
 
 
-def _host_rows(payloads: Sequence[Tree], losses: torch.Tensor
-               ) -> tuple[list[Tree], np.ndarray]:
+# -- the cohort reductions on the device -------------------------------------
+#
+# The port's cohort stack is a list of trees, one per participant slot, so
+# both reductions are left folds in ascending slot order on the stack's
+# device and in its dtype: the ideal backend's fused total and the
+# simulated backend's sum of the delivered payloads are the same adds in
+# the same order, bit for bit.  Neither is ``torch.sum`` over a stacked
+# dimension, which may reorder the adds.
+
+
+def seq_tree_sum(stack: Sequence[Tree]) -> Tree:
+    """``stack[0] + stack[1] + ...``, in ascending slot order."""
+    return tree_sum(stack)
+
+
+def seq_weighted_sum(stack: Sequence[Tree], weights: Sequence[float]
+                     ) -> Tree:
+    """``w[0] * stack[0] + w[1] * stack[1] + ...`` in ascending slot order
+    (the size-weighted FedAvg average); ``weights`` are Python floats
+    (float32 values, as the reference's weights are)."""
+    total = tree_map(lambda x: weights[0] * x, stack[0])
+    for w, tree in zip(weights[1:], stack[1:]):
+        total = tree_map(lambda a, x, w=w: a + w * x, total, tree)
+    return total
+
+
+def fedavg_weights(sizes: Sequence[float]) -> list[float]:
+    """``size / sum(sizes)`` per slot, rounded to float32 like the
+    reference's ``np.float32`` weights."""
+    wsum = sum(sizes)
+    return np.asarray([w / wsum for w in sizes], np.float32).tolist()
+
+
+# -- fused output -> per-participant contributions ---------------------------
+
+
+def _host_rows(payloads: Sequence[Tree], losses: torch.Tensor | None
+               ) -> tuple[list[Tree], np.ndarray | None]:
     """The cohort's payload trees and losses in ONE device-to-host copy.
 
     On the device, each tree is flattened into one float32 row and the rows
     are stacked into [n_active, L + 1] with each participant's loss in the
-    last column; after the one ``.cpu()``, every payload leaf is a numpy
-    view of its row.
+    last column (no column without losses); after the one ``.cpu()``, every
+    payload leaf is a numpy view of its row.
     """
     rows = torch.stack([
         torch.cat([leaf.detach().reshape(-1).float()
-                   for leaf in tree_leaves(tree)] + [loss.reshape(1)])
-        for tree, loss in zip(payloads, losses.detach().float())
+                   for leaf in tree_leaves(tree)]
+                  + ([] if losses is None
+                     else [losses[s].detach().float().reshape(1)]))
+        for s, tree in enumerate(payloads)
     ])
     host = rows.cpu().numpy()
     views = []
@@ -111,30 +174,34 @@ def _host_rows(payloads: Sequence[Tree], losses: torch.Tensor
             leaves.append(row[off:off + leaf.numel()].reshape(leaf.shape))
             off += leaf.numel()
         views.append(tree_unflatten(payloads[0], leaves))
-    return views, host[:, -1]
+    return views, None if losses is None else host[:, -1]
 
 
-def build_contributions(active: Sequence[int], losses: torch.Tensor,
+def build_contributions(active: Sequence[int], losses: torch.Tensor | None,
                         sizes: Sequence[int],
-                        payloads: Sequence[Tree] | None = None
+                        payloads: Sequence[Tree] | None = None,
+                        mode: str | None = None
                         ) -> dict[int, Contribution]:
-    """One host sync for the whole cohort's losses — and, when the backend
-    needs per-participant payloads (SecAgg uploads), for the whole cohort's
-    payloads in the same copy; the slices are numpy views.
-
-    Without ``payloads`` they stay on the device inside the fused reduced
-    sum and each ``Contribution.payload`` is None.
+    """One host sync for the whole cohort's losses (none for an arm that
+    logs no loss) — and, in ``mode`` "host" (SecAgg uploads), for the whole
+    cohort's payloads in the same copy; the slices are numpy views.  In
+    mode "device" each ``payload`` is its participant's device tree; in
+    mode None the payloads stay inside the fused reduced sum and each is
+    None.
     """
-    if payloads is None:
-        slices, loss_vals = [None] * len(active), losses.detach().cpu().numpy()
-    else:
+    loss_vals = None
+    if mode == "host":
         slices, loss_vals = _host_rows(payloads, losses)
+    else:
+        slices = list(payloads) if mode == "device" else [None] * len(active)
+        if losses is not None:
+            loss_vals = losses.detach().cpu().numpy()
     return {
         i: Contribution(
             payload=slices[s],
             size=int(sizes[s]),
             # repro: allow[host-sync-hygiene] loss_vals is host numpy: the one sync per round is .cpu() above, the port's counterpart of the sanctioned repro.arms.fused:build_contributions
-            loss=float(loss_vals[s]),
+            loss=None if loss_vals is None else float(loss_vals[s]),
         )
         for s, i in enumerate(active)
     }

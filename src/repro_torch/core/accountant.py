@@ -21,6 +21,7 @@ with log-erfc), then composes linearly over steps and converts to
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, field
 from typing import Iterable, Sequence
@@ -250,6 +251,18 @@ def sigma_for_epsilon(
     return hi
 
 
+@functools.lru_cache(maxsize=256)
+def _per_step_rdp(p: float, sigma: float,
+                  orders: tuple[float, ...]) -> np.ndarray:
+    """One step's RDP curve, computed once per (p, sigma, orders): the
+    fractional orders' series take about a second on the host, and every
+    per-client accountant of a cohort (primia, gossip-dp) and every fresh
+    run asks again.  Read-only, since it is shared."""
+    rdp = compute_rdp_sgm(p, sigma, 1, orders)
+    rdp.flags.writeable = False
+    return rdp
+
+
 @dataclass
 class RDPAccountant:
     """Stateful accountant tracking composition across DeCaPH rounds."""
@@ -262,9 +275,9 @@ class RDPAccountant:
     _rdp: np.ndarray = field(default=None, repr=False)  # type: ignore[assignment]
 
     def __post_init__(self) -> None:
-        self._per_step = compute_rdp_sgm(
-            self.sampling_rate, self.noise_multiplier, 1, self.orders
-        )
+        self._per_step = _per_step_rdp(
+            float(self.sampling_rate), float(self.noise_multiplier),
+            tuple(self.orders))
         self._rdp = np.zeros_like(self._per_step)
 
     def step(self, n: int = 1) -> None:

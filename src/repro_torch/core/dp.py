@@ -8,7 +8,8 @@ Counterpart of ``repro.core.dp``:
   * ghost norms of a dense layer with 2-D inputs (the sequence case is the
     ``ghost_norm`` kernel, called from ``core.ghost``);
   * distributed noise shares: every participant adds N(0, (C sigma)^2 / H)
-    so the secure **sum** carries the paper's N(0, (C sigma)^2).
+    so the secure **sum** carries the paper's N(0, (C sigma)^2), and the
+    top-up that restores that variance when shares are lost to dropouts.
 
 Noise comes from an explicit ``torch.Generator``.  The reference derives
 its keys with ``jax.random.fold_in``; a torch generator cannot reproduce
@@ -151,6 +152,37 @@ def tree_add_noise(tree: Tree, generator: torch.Generator, *,
                      noise_multiplier=noise_multiplier, n_shares=n_shares)
     return tree_map(torch.add, tree, nz)
 
+
+# The stream word of dropout noise top-ups, so a top-up draw never shares a
+# seed with a participant's noise share (arms use small words like 17 + t).
+# The reference's TOPUP_SALT value, here a SeedSequence word (not a JAX
+# fold_in salt: the two packages share no key namespace).
+TOPUP_STREAM = 1_000_003
+
+
+def tree_topup_noise(template: Tree, generator: torch.Generator, *,
+                     clip_norm: float, noise_multiplier: float,
+                     missing: int, n_shares: int) -> Tree:
+    """Conservative noise top-up when ``missing`` of ``n_shares`` noise
+    shares were lost mid-round.
+
+    Each share carries N(0, (C sigma)^2 / n); losing ``missing`` of them
+    leaves the delivered sum under-noised, with variance
+    (C sigma)^2 (n - missing) / n.  An independent
+    N(0, (C sigma)^2 missing / n) draw restores the full-cohort variance
+    the accountant assumed (Gaussian variances add).  Float32 leaves of
+    ``template``'s shapes, drawn in tree order from ``generator``, on its
+    device.
+    """
+    if not 0 < missing <= n_shares:
+        raise ValueError(
+            f"need 0 < missing <= n_shares (got {missing}/{n_shares})"
+        )
+    std = clip_norm * noise_multiplier * math.sqrt(missing / float(n_shares))
+    noise = [torch.randn(x.shape, generator=generator, dtype=torch.float32,
+                         device=generator.device) * std
+             for x in tree_leaves(template)]
+    return tree_unflatten(template, noise)
 
 # ---------------------------------------------------------------------------
 # Ghost clipping: per-example grad norms without per-example grads.

@@ -13,11 +13,17 @@ mean/variance at preparation, (2) aggregate mini-batch size per round,
     (mod 2^32); masks cancel *exactly* in the field sum, so the aggregator
     only ever learns the total.
 
-``SecAggSession`` is the paper's variant: hospitals follow the protocol and
-stay online, so every upload must arrive (``aggregate`` fails loudly
-otherwise — a missing upload would leave un-cancelled masks and a silently
-corrupt sum).  Dropout recovery (Shamir) comes with the simulated-time
-backend.
+Two session flavours, as in the reference:
+
+  * ``SecAggSession`` — the paper's variant: hospitals follow the protocol
+    and stay online, so every upload must arrive (``aggregate`` fails
+    loudly otherwise — a missing upload would leave un-cancelled masks and
+    a silently corrupt sum);
+  * ``DropoutRobustSession`` — Bonawitz-style recovery: pairwise pads
+    seeded by a (toy 61-bit) Diffie-Hellman agreement, each DH secret
+    Shamir-shared among the cohort, so any ``threshold`` survivors let the
+    facilitator rebuild a dropped party's pads and cancel them.  The
+    simulated-time backend (``arms.runners.SimRunner``) runs it.
 
 The field arithmetic runs on the host in numpy, as the reference's does:
 uploads are ciphertexts, not device tensors, and numpy gives exact
@@ -26,9 +32,12 @@ Only ``aggregate``'s decoded float32 totals go back to a device.
 
 The PRG is the port's own: each unordered pair {lo, hi} draws its pad from
 ``np.random.Generator(np.random.Philox(SeedSequence((seed, lo, hi))))``,
-where the reference folds (lo, hi) into a threefry key.  The ciphertexts
-therefore differ from the reference's; the masks still cancel exactly, so
-sums and decoded totals are the reference's bit for bit.
+and a dropout-robust pair from ``Philox(SeedSequence(agreement))``, where
+the reference folds (lo, hi) or the agreement's words into a threefry key.
+The ciphertexts therefore differ from the reference's; the masks still
+cancel exactly, so sums and decoded totals are the reference's bit for
+bit.  The DH secrets, public keys and Shamir shares come from the same
+numpy generator as the reference's, so they are its own, bit for bit.
 """
 
 from __future__ import annotations
@@ -95,13 +104,26 @@ def _pair_pad(seed: int, lo: int, hi: int, length: int) -> np.ndarray:
     return gen.integers(0, 1 << _FIELD_BITS, size=length, dtype=_FIELD_DTYPE)
 
 
+def _seed_pad(agreement: int, length: int) -> np.ndarray:
+    """The one-time pad of a DH agreement (a 61-bit int): ``length`` field
+    words.  The one derivation: the holders' masks and the facilitator's
+    recovery draw the same words from the same agreement."""
+    gen = np.random.Generator(np.random.Philox(
+        np.random.SeedSequence(int(agreement))))
+    return gen.integers(0, 1 << _FIELD_BITS, size=length, dtype=_FIELD_DTYPE)
+
+
 def _signed_masks(n: int, length: int, los: np.ndarray, his: np.ndarray, *,
-                  seed: int) -> np.ndarray:
-    """(n, L) net masks: row i = sum_{i=lo} pad - sum_{i=hi} pad (mod 2^32)."""
+                  seed: int | None = None,
+                  agreements: Sequence[int] | None = None) -> np.ndarray:
+    """(n, L) net masks: row i = sum_{i=lo} pad - sum_{i=hi} pad (mod 2^32).
+    Each pair's pad comes from ``_pair_pad(seed, lo, hi)``, or from
+    ``_seed_pad`` of the pair's DH agreement when ``agreements`` is given."""
     masks = np.zeros((n, length), _FIELD_DTYPE)
     with np.errstate(over="ignore"):  # modular field arithmetic
-        for lo, hi in zip(los, his):
-            pad = _pair_pad(seed, lo, hi, length)
+        for k, (lo, hi) in enumerate(zip(los, his)):
+            pad = (_pair_pad(seed, lo, hi, length) if agreements is None
+                   else _seed_pad(agreements[k], length))
             masks[lo] += pad
             masks[hi] -= pad
     return masks
@@ -180,8 +202,9 @@ def _to_tensors(arrays: Sequence[np.ndarray], device) -> list[torch.Tensor]:
     return [torch.from_numpy(np.asarray(a)).to(device) for a in arrays]
 
 
-class SecAggSession:
-    """One aggregation round over a fixed template tree.
+class _MaskedSession:
+    """What both session flavours share: the template, the masked upload
+    of one participant or of a whole cohort, and where decoded totals go.
 
     ``device`` is where ``aggregate`` puts the decoded totals (None: the
     template's tensors' device, or the host for a numpy template).
@@ -198,14 +221,8 @@ class SecAggSession:
         self._los, self._his = _pairs(cfg.n_participants)
         self._masks: np.ndarray | None = None  # (n, L), built lazily
 
-    def _flat_masks(self) -> np.ndarray:
-        """Every participant's net mask, one pair's pad at a time."""
-        if self._masks is None:
-            self._masks = _signed_masks(
-                self.cfg.n_participants, self._length, self._los, self._his,
-                seed=self.cfg.seed,
-            )
-        return self._masks
+    def _flat_masks(self) -> np.ndarray:  # pragma: no cover
+        raise NotImplementedError
 
     def mask_for(self, i: int) -> list[np.ndarray]:
         """Net mask participant i applies (sums to zero over participants)."""
@@ -241,6 +258,27 @@ class SecAggSession:
         return {i: _split_flat(row, self._leaves)
                 for i, row in zip(order, enc)}
 
+    def _decoded(self, total: np.ndarray) -> Tree:
+        """The field total decoded into float32 tensors on ``self.device``."""
+        decoded = [_decode(t, self.cfg)
+                   for t in _split_flat(total, self._leaves)]
+        return tree_unflatten(self.template,
+                              _to_tensors(decoded, self.device))
+
+
+class SecAggSession(_MaskedSession):
+    """One aggregation round over a fixed template tree (every upload must
+    arrive)."""
+
+    def _flat_masks(self) -> np.ndarray:
+        """Every participant's net mask, one pair's pad at a time."""
+        if self._masks is None:
+            self._masks = _signed_masks(
+                self.cfg.n_participants, self._length, self._los, self._his,
+                seed=self.cfg.seed,
+            )
+        return self._masks
+
     def aggregate(self, uploads: Sequence[list[np.ndarray]]) -> Tree:
         """Leader-side sum of ciphertexts; masks cancel exactly in Z_2^32.
         Returns the decoded total as float32 tensors on ``self.device``."""
@@ -248,16 +286,14 @@ class SecAggSession:
             raise ValueError(
                 "honest-but-curious SecAgg requires all participants "
                 f"({len(uploads)} of {self.cfg.n_participants} uploads); a "
-                "missing upload leaves un-cancelled masks in the sum"
+                "missing upload leaves un-cancelled masks in the sum — use "
+                "DropoutRobustSession if participants may drop out"
             )
         _check_uploads(uploads, self._leaves)
         with np.errstate(over="ignore"):  # modular wraparound is the protocol
             total = _stack_ciphertexts(uploads).sum(axis=0,
                                                     dtype=_FIELD_DTYPE)
-        decoded = [_decode(t, self.cfg)
-                   for t in _split_flat(total, self._leaves)]
-        return tree_unflatten(self.template,
-                              _to_tensors(decoded, self.device))
+        return self._decoded(total)
 
 
 def secure_sum(values: Sequence[Tree], cfg: SecAggConfig, *,
@@ -271,7 +307,7 @@ def secure_sum(values: Sequence[Tree], cfg: SecAggConfig, *,
         raise ValueError(
             f"secure_sum: {len(values)} value trees for "
             f"{cfg.n_participants} participants — every participant must "
-            "contribute"
+            "contribute (dropouts need DropoutRobustSession)"
         )
     session = SecAggSession(cfg, values[0], device=device)
     uploads = session.upload_all(dict(enumerate(values)))
@@ -303,6 +339,214 @@ def secure_sum_ints(values: Sequence[int], *, n_participants: int,
         ciphertexts = np.asarray(values, np.uint64).astype(_FIELD_DTYPE) + masks
         total = int(ciphertexts.sum(dtype=_FIELD_DTYPE))
     return total
+
+
+# --------------------------------------------------------------------------
+# Dropout-robust SecAgg: DH pairwise seeds + Shamir recovery (Bonawitz §4).
+# --------------------------------------------------------------------------
+
+# 2^61 - 1 (Mersenne prime).  One field for both the Shamir shares and the
+# toy Diffie-Hellman group, as in the reference: a deployment would use
+# X25519; the protocol (what is shared, who reveals what, when) is what is
+# reproduced.
+_SHAMIR_PRIME = (1 << 61) - 1
+_DH_GENERATOR = 3
+
+
+def shamir_share(secret: int, n_shares: int, threshold: int,
+                 rng: np.random.Generator) -> list[tuple[int, int]]:
+    """Split ``secret`` into n points of a degree-(threshold-1) polynomial."""
+    if not 0 <= secret < _SHAMIR_PRIME:
+        raise ValueError("secret out of field range")
+    if not 1 <= threshold <= n_shares:
+        raise ValueError("need 1 <= threshold <= n_shares")
+    coeffs = [secret] + [
+        int(rng.integers(0, _SHAMIR_PRIME)) for _ in range(threshold - 1)
+    ]
+    shares = []
+    for x in range(1, n_shares + 1):
+        y = 0
+        for c in reversed(coeffs):  # Horner
+            y = (y * x + c) % _SHAMIR_PRIME
+        shares.append((x, y))
+    return shares
+
+
+def shamir_reconstruct(shares: Sequence[tuple[int, int]]) -> int:
+    """Lagrange-interpolate the polynomial at 0 from >= threshold shares."""
+    if not shares:
+        raise ValueError("no shares to reconstruct from")
+    if len({x for x, _ in shares}) != len(shares):
+        raise ValueError("duplicate share indices")
+    p = _SHAMIR_PRIME
+    secret = 0
+    for i, (xi, yi) in enumerate(shares):
+        num, den = 1, 1
+        for j, (xj, _) in enumerate(shares):
+            if i == j:
+                continue
+            num = num * (-xj) % p
+            den = den * (xi - xj) % p
+        secret = (secret + yi * num * pow(den, p - 2, p)) % p
+    return secret
+
+
+class DropoutRobustSession(_MaskedSession):
+    """SecAgg round that survives participants dropping before upload.
+
+    Setup (simulated in-process; each step is one protocol message):
+      1. *advertise*: every participant i draws a DH secret u_i and
+         publishes g^{u_i}; the pairwise pad seed is the agreement
+         s_ij = g^{u_i u_j}, which neither the facilitator nor a third
+         party can derive;
+      2. *share keys*: i Shamir-shares u_i among all participants with a
+         reconstruction ``threshold`` t (honest-majority default).
+
+    On dropout of d (no upload received): ``threshold`` survivors reveal
+    their shares of u_d, the facilitator reconstructs u_d, regenerates the
+    pad s_dj of every survivor j one at a time, and cancels it from the
+    ciphertext sum — which then equals the plain sum of the survivors'
+    values.  As in the reference there are no self-masks, so an upload
+    that arrived is never unmasked: a party dropping after its upload
+    landed stays in the sum.
+    """
+
+    def __init__(self, cfg: SecAggConfig, template: Tree, *,
+                 threshold: int | None = None, device=None) -> None:
+        n = cfg.n_participants
+        if n < 2:
+            raise ValueError("need at least 2 participants")
+        self.threshold = threshold if threshold is not None else n // 2 + 1
+        if not 2 <= self.threshold <= n:
+            raise ValueError(f"threshold {self.threshold} not in [2, {n}]")
+        super().__init__(cfg, template, device=device)
+        # one seeded stream for every party's local randomness, as the
+        # reference draws it (so secrets and shares are its own)
+        rng = np.random.default_rng(np.uint64(cfg.seed) ^ np.uint64(0x5ECA66))
+        self._secret_keys = [
+            int(rng.integers(2, _SHAMIR_PRIME - 1)) for _ in range(n)
+        ]
+        self.public_keys = [
+            pow(_DH_GENERATOR, u, _SHAMIR_PRIME) for u in self._secret_keys
+        ]
+        # shares[i][j] = participant j's share of u_i (index x = j + 1)
+        self._shares = [
+            shamir_share(u, n, self.threshold, rng) for u in self._secret_keys
+        ]
+        # (survivors, the field vector cancelling their pads with the
+        # dropped parties), once ``recover`` ran
+        self._recovered: tuple[tuple[int, ...], np.ndarray] | None = None
+
+    def _pair_seed(self, holder: int, other: int) -> int:
+        """DH agreement: pow(pk_other, u_holder) == g^(u_i u_j), symmetric."""
+        return pow(self.public_keys[other], self._secret_keys[holder],
+                   _SHAMIR_PRIME)
+
+    def _flat_masks(self) -> np.ndarray:
+        """Every participant's net mask, one agreement's pad at a time."""
+        if self._masks is None:
+            agreements = [self._pair_seed(int(lo), int(hi))
+                          for lo, hi in zip(self._los, self._his)]
+            self._masks = _signed_masks(
+                self.cfg.n_participants, self._length, self._los, self._his,
+                agreements=agreements,
+            )
+        return self._masks
+
+    def recovery_shares(self, dropped: int, survivors: Sequence[int]
+                        ) -> list[tuple[int, int]]:
+        """Shares of u_dropped that the survivors reveal to the facilitator."""
+        return [self._shares[dropped][j] for j in survivors]
+
+    def recover(self, survivors: Sequence[int]) -> np.ndarray:
+        """The facilitator's recovery: from ``threshold`` survivors' shares
+        reconstruct each dropped party's secret, regenerate every pad it
+        shared with a survivor (one pad resident at a time) and return the
+        field vector that cancels them from the survivors' ciphertext sum.
+        Cached for the round, so a backend can run it apart (its own
+        ``secagg.recover`` span) before ``aggregate`` applies it."""
+        key = tuple(sorted(survivors))
+        if self._recovered is not None and self._recovered[0] == key:
+            return self._recovered[1]
+        n = self.cfg.n_participants
+        dropped = [d for d in range(n) if d not in set(key)]
+        fix = np.zeros((self._length,), _FIELD_DTYPE)
+        with np.errstate(over="ignore"):  # modular field arithmetic
+            for d in dropped:
+                # any ``threshold`` survivors' shares reconstruct u_d exactly
+                u_d = shamir_reconstruct(
+                    self.recovery_shares(d, key[: self.threshold]))
+                # survivor j applied +pad if j < d else -pad: regenerate
+                # each pad from the reconstructed secret and cancel it
+                for j in key:
+                    pad = _seed_pad(pow(self.public_keys[j], u_d,
+                                        _SHAMIR_PRIME), self._length)
+                    if j < d:
+                        fix -= pad
+                    else:
+                        fix += pad
+        self._recovered = (key, fix)
+        return fix
+
+    def aggregate(self, uploads: Mapping[int, list[np.ndarray]]) -> Tree:
+        """Sum received ciphertexts; reconstruct + cancel dropped pads.
+
+        ``uploads`` maps participant index -> ciphertext; participants
+        absent from it are treated as dropped and recovered via Shamir
+        (``recover``).  Raises if fewer than ``threshold`` uploads survive.
+        Returns the decoded total as float32 tensors on ``self.device``.
+        """
+        n = self.cfg.n_participants
+        survivors = sorted(uploads)
+        if any(not 0 <= s < n for s in survivors):
+            raise ValueError("upload index out of range")
+        if len(survivors) < self.threshold:
+            raise ValueError(
+                f"only {len(survivors)} uploads for threshold "
+                f"{self.threshold}: cannot reconstruct dropped masks"
+            )
+        _check_uploads([uploads[s] for s in survivors], self._leaves)
+        with np.errstate(over="ignore"):  # modular field arithmetic
+            total = _stack_ciphertexts(
+                [uploads[s] for s in survivors]).sum(axis=0,
+                                                     dtype=_FIELD_DTYPE)
+            if len(survivors) < n:
+                total += self.recover(survivors)
+        return self._decoded(total)
+
+
+def secure_sum_with_dropouts(values: Sequence[Tree | None], cfg: SecAggConfig,
+                             *, threshold: int | None = None,
+                             device=None) -> Tree:
+    """Full dropout-robust round; ``None`` entries are dropped participants."""
+    values = list(values)
+    if len(values) != cfg.n_participants:
+        raise ValueError(
+            f"{len(values)} slots for {cfg.n_participants} participants"
+        )
+    template = next((v for v in values if v is not None), None)
+    if template is None:
+        raise ValueError("every participant dropped; nothing to aggregate")
+    session = DropoutRobustSession(cfg, template, threshold=threshold,
+                                   device=device)
+    uploads = session.upload_all(
+        {i: v for i, v in enumerate(values) if v is not None}
+    )
+    return session.aggregate(uploads)
+
+
+def secagg_recovery_bytes(n_participants: int, n_dropped: int = 0
+                          ) -> dict[str, float]:
+    """Wire-cost model for the dropout-robust extension.
+
+    Setup: each participant broadcasts an 8 B public key and sends one 16 B
+    Shamir share (8 B y + index) to each peer.  Recovery: each survivor
+    reveals one share per dropped participant to the facilitator.
+    """
+    n, d = n_participants, n_dropped
+    setup = n * 8.0 + n * (n - 1) * 16.0
+    recovery = (n - d) * d * 16.0
+    return {"setup_bytes": setup, "recovery_bytes": recovery}
 
 
 def secagg_message_bytes(n_params: int, n_participants: int,

@@ -184,7 +184,7 @@ def test_one_program_call_per_fused_round(lm):
 
 
 @pytest.mark.parametrize("backend,kw,match", [
-    ("sim", {}, "only 'ideal'"),
+    ("sim", {}, "backend 'sim' needs nodes="),
     ("ideal", dict(participation_rate=0.5), "subsampling"),
 ])
 def test_ideal_backend_refuses_what_it_cannot_run(lm, backend, kw, match):
@@ -197,14 +197,15 @@ def test_ideal_backend_refuses_what_it_cannot_run(lm, backend, kw, match):
 def test_secagg_is_refused_at_validation(lm):
     """Secure uploads are refused before any compute on a backend whose
     record says it does not run SecAgg (``ideal`` does: see below)."""
-    no_secagg = dataclasses.replace(backends.IDEAL, supports_secagg=False)
-    with mock.patch.object(backends, "IDEAL", no_secagg):
-        with pytest.raises(ValueError, match="does not run SecAgg"):
+    ideal = backends.get_backend("ideal")
+    no_secagg = dataclasses.replace(ideal.info, supports_secagg=False)
+    with mock.patch.object(ideal, "info", no_secagg):
+        with pytest.raises(ValueError, match="does not run the SecAgg"):
             arms.run("decaph", lm["tmodel"], lm["tsilos"],
                      _cfg(0.8, use_secagg=True))
         # the same arm without SecAgg is not refused by that rule
         assert backends.compatibility_error(
-            arms.get("decaph"), "ideal", use_secagg=False) is None
+            arms.get("decaph"), no_secagg, use_secagg=False) is None
 
 
 def test_secagg_path_is_taken_and_matches_reference(lm):

@@ -194,9 +194,12 @@ def test_train_and_publish_feeds_the_watcher(tmp_path):
 
 
 def test_train_and_publish_refuses_an_arm_the_port_lacks(tmp_path):
+    """The port registers every arm of the reference, so the arm it lacks
+    is one neither package has; the refusal names the registered ones."""
     cfg = get_smoke_config(ARCH)
-    with pytest.raises(KeyError, match="fl"):
-        train_and_publish("fl", cfg, str(tmp_path), rounds=1, device="cpu")
+    with pytest.raises(KeyError, match="unknown arm 'fedbuff'.*gossip-dp"):
+        train_and_publish("fedbuff", cfg, str(tmp_path), rounds=1,
+                          device="cpu")
 
 
 # -- across packages ----------------------------------------------------------------

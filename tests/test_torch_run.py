@@ -3,7 +3,11 @@
 ``run_one`` builds the same GEMINI-like hospitals and zero-initialised
 logistic regression in both packages and runs DeCaPH with SecAgg on the
 ``ideal`` backend.  At sigma = 0 the runs must agree: ε equal (inf), loss
-within 1e-5 and the same pooled accuracy.
+within 1e-5 and the same pooled accuracy.  On ``sim`` (nodes from
+``heterogeneous_trace``) the printed lines are the reference's, the
+``sim_wall`` part included, except DeCaPH's simulated wall clock: its
+uniform leader draw is the port's own numpy draw (ROADMAP.md, Queue 3),
+and the leader decides whose uploads cross which link.
 """
 
 import json
@@ -48,12 +52,45 @@ def test_run_one_matches_the_reference_at_sigma0(capsys):
     assert acc == jacc
 
 
+@pytest.mark.parametrize("arm", ["fl", "primia", "gossip", "decaph"])
+def test_run_one_on_sim_prints_the_references_line(arm, capsys):
+    ours = run.run_one(arm, "sim", sigma=0.0, device="cpu", **KW)
+    ref = jrun.run_one(arm, "sim", sigma=0.0, **KW)
+    line, jline = capsys.readouterr().out.splitlines()
+    assert ours.timing is not None and ours.rounds_completed == \
+        ref.rounds_completed
+    if arm == "decaph":
+        # all but the simulated wall clock, which the leaders decide
+        line, jline = (x.replace(x[x.index("sim_wall="):x.index("wire=")],
+                                 "") for x in (line, jline))
+    assert line == jline
+
+
 def test_list_and_smoke_return_0(capsys):
     assert run.main(["--list"]) == 0
     listed = capsys.readouterr().out
     assert "decaph" in listed and "secagg=True" in listed
+    # the arms as the reference lists them, and both registered backends
+    assert listed.splitlines()[:9] == jrun_list()[:9]
+    backend_lines = listed.split("backends:\n")[1].splitlines()
+    assert [l.split()[0] for l in backend_lines] == ["ideal", "sim"]
+    assert "sim_time=True group=host" in backend_lines[1]
     assert run.main(["--smoke", "--device", "cpu"]) == 0
-    assert "all registered arms passed" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "all registered arms passed" in out
+    ran = {tuple(l.split()[:2]) for l in out.splitlines() if "rounds=" in l}
+    assert ran == {(a, b) for a in arms.names() for b in ("ideal", "sim")}
+
+
+def jrun_list() -> list[str]:
+    """The reference's ``--list`` lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert jrun.main(["--list"]) == 0
+    return buf.getvalue().splitlines()
 
 
 def test_obs_writes_its_three_files(tmp_path, capsys):

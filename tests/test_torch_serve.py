@@ -246,7 +246,8 @@ def _run_python(code: str) -> subprocess.CompletedProcess:
 def test_port_imports_no_jax_and_no_reference_module():
     """Every module of the port, found by walking the package (so each new
     slice's modules are checked too), imports no JAX and nothing of
-    ``repro``; the SecAgg and data modules also load no ``msgpack`` and no
+    ``repro``; the arms (with both backends), the simulator, SecAgg, the
+    LiRA audit and the data modules also load no ``msgpack`` and no
     ``ml_dtypes``, which the card's machine lacks."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -268,10 +269,14 @@ def test_port_imports_no_jax_and_no_reference_module():
             "repro_torch.data.partition", "repro_torch.models.tabular",
             "repro_torch.run", "repro_torch.serve.engine",
             "repro_torch.checkpoint.checkpoint",
-            "repro_torch.kernels.ghost_norm.ops"} <= walked, walked
+            "repro_torch.kernels.ghost_norm.ops", "repro_torch.arms.runners",
+            "repro_torch.arms.scaffold", "repro_torch.arms.gossip_dp",
+            "repro_torch.sim.engine", "repro_torch.sim.topology",
+            "repro_torch.core.mia"} <= walked, walked
     code = (
         "import sys\n"
         "import repro_torch.core.secagg, repro_torch.data\n"
+        "import repro_torch.arms, repro_torch.sim, repro_torch.core.mia\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'repro', 'msgpack', 'ml_dtypes')]\n"
         "print(bad)\n"
