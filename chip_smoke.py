@@ -26,7 +26,9 @@ script exits non-zero, printing no result:
      rows of one batch far apart), at 1e-4 in float32 and atol 1e-3 +
      rtol 1e-2 in bfloat16; ``ghost_norm`` at the shapes of
      ``tests/test_kernels.py``, at the training shapes (B=16, S=256,
-     every dense layer of SmolLM-360M and its head) and at its tiles' and
+     every dense layer of SmolLM-360M and its head), at the "lm" presets'
+     full-size shapes (B=16, S=64, every dense layer of d 256 and the
+     256 -> 1024 head) and at its tiles' and
      copies' edges (ragged S, widths of one K-step, rows that are not
      16-byte multiples, base addresses off 16 bytes), in every (a, g)
      dtype pair (bf16 and float32 either way round too, as a round meets
@@ -150,18 +152,56 @@ script exits non-zero, printing no result:
      shadows, 60 steps of MLP 436-64-16-1, lr 1.0) against an FL target
      and a DP target (C 1.0, sigma 0.8), every model trained on the card
      with the port's ``core.dp``: AUROC and TPR at 1% FPR finite in
-     [0, 1], the ROC curve non-decreasing; the gap is printed only.
+     [0, 1], the ROC curve non-decreasing; the gap is printed only;
+ 18. the scenario suite — ``scenarios.run_spec`` on the presets
+     ``lm-full`` (d 256, 4 layers, untied head, 4 hospitals x 48 x 64
+     tokens, 8 rounds of batch 16, ghost clipping), ``gemini-full`` (MLP
+     436-300-100-50-10-1, 8 hospitals, 5,000 examples, 12 rounds,
+     SecAgg), ``gemini-5hospital`` and ``gemini-5hospital-churn``, each as
+     the reference defines it, all on ``sim``: ε a fresh accountant's,
+     ``lm-full`` one program call per round and 29 = 7 x 4 + 1
+     ``ghost_norm`` launches per participant and round (added to the
+     kernels line), every ``ghost_norm`` shape it meets among phase 3's,
+     its pooled next-token accuracy in [0, 1] from a forward on the card;
+     the ``capacity-lm`` sweep (6 cells, ``ideal``) through ``run_sweep``
+     into a fresh cache, ghost cells launching ``ghost_norm`` (15 or 29
+     per participant and round) and per-example cells none, each ghost
+     cell's ε equal to its per-example twin's and its mean loss and
+     accuracy within 1e-5 and 1e-3 of them, then replayed wholly from
+     the cache (6 hits, the same rows); ``python -m
+     repro_torch.scenarios --run gemini-small`` in a subprocess.  On
+     every ghost path of phases 18-19 the first (a, g) of each shape and
+     dtype pair is kept, and after the run's counts are read
+     ``ghost_norm`` is held against its plain version on it (rtol 1e-4)
+     and against a second launch bit for bit;
+ 19. the population backend — ``python -m repro_torch.population
+     --hospitals 50,200,1000 --seeds 0 --check-determinism`` in a
+     subprocess (the reference's ``population-scaling`` cells at seed 0,
+     every graph re-traced byte for byte); the same spec at the paper's
+     GEMINI width (MLP 436-300-100-50-10-1, 40,114 admissions, 1000
+     hospitals, q 0.1, decaph sigma 0.8, 5 rounds): ε the accountant's at
+     rate · q, one program call per executed round, mean cohort below
+     1000, the trace's and each round's host ms, and a re-trace under
+     ``cProfile`` (byte-identical; the share of ``Topology.neighbors``
+     printed); and ``lm-full``'s model
+     and silos at q = 1, sigma 0, 3 rounds on ``population`` bit for bit
+     ``ideal`` (``torch.equal``), with the same ``ghost_norm`` launches.
 
+Artifacts and caches of phases 18–19 go into a temp dir under ``build/``.
 The next-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import cProfile
+import contextlib
 import dataclasses
 import functools
 import json
 import math
+import os
+import pstats
 import re
 import statistics
 import subprocess
@@ -226,6 +266,12 @@ import repro_torch.obs as obs  # noqa: E402
 from repro_torch.core import mia as mia_lib  # noqa: E402
 from repro_torch.core.leader import leader_schedule  # noqa: E402
 from repro_torch.sim import heterogeneous_trace, nodes_from_trace  # noqa: E402
+from repro_torch.sim import Topology  # noqa: E402
+import repro_torch.scenarios as scenario_lib  # noqa: E402
+from repro_torch.scenarios import presets as presets_lib  # noqa: E402
+from repro_torch.scenarios.executor import n_params  # noqa: E402
+from repro_torch.population.backend import PopulationRunner  # noqa: E402
+from repro_torch.population.spec import PopulationSpec  # noqa: E402
 
 ARCH = "smollm-360m"
 SEED = 0
@@ -289,6 +335,13 @@ GHOST_OFFSET_CASES = [((2, 128, 64, 48), 1), ((2, 256, 960, 2560), 2),
 GHOST_TRAIN_SHAPES = {(16, 256, 960, 960): 64, (16, 256, 960, 320): 64,
                       (16, 256, 960, 2560): 64, (16, 256, 2560, 960): 32,
                       (16, 256, 960, 49152): 1}
+# the "lm" presets' shapes at their full size (phase 18's lm-full and phase
+# 19's q = 1 run): the Poisson pad of B=16 rows of S=64 tokens through d 256
+# (q and o 256->256, k and v 256->128, up and gate 256->512, down 512->256)
+# and the untied head (256->1024); phase 18 also holds every shape it
+# records on that path against this list
+GHOST_LM_SHAPES = [(16, 64, 256, 256), (16, 64, 256, 128), (16, 64, 256, 512),
+                   (16, 64, 512, 256), (16, 64, 256, 1024)]
 GHOST_ROW_SHAPE = (16, 256, 960, 2560)   # the kernels line's ghost_norm times
 GHOST_RTOL = 1e-4   # kernel vs plain: the same float32 sums, other order
 
@@ -553,42 +606,77 @@ GHOST_DTYPES = [(torch.bfloat16, torch.bfloat16),
                 (torch.float32, torch.bfloat16)]
 
 
+def _ghost_check(a, g, what: str) -> float:
+    """ghost_norm on (a, g) against its plain version (|kernel - plain| <=
+    GHOST_RTOL * |plain| + 1e-6) and against a second launch bit for bit;
+    returns the largest |kernel - plain|."""
+    out = ghost_ops.ghost_norm(a, g)
+    again = ghost_ops.ghost_norm(a, g)
+    ref = ghost_norm_blocked(a, g)
+    torch.cuda.synchronize()
+    b = a.shape[0]
+    if out.shape != (b,) or out.dtype != torch.float32:
+        raise AssertionError(f"kernel output {tuple(out.shape)} "
+                             f"{out.dtype}, expected ({b},) float32")
+    err = (out - ref).abs()
+    same = torch.equal(out, again)
+    ok = bool(torch.all(err <= GHOST_RTOL * ref.abs() + 1e-6)) and same
+    rel = float((err / ref.abs().clamp(min=1e-30)).max())
+    say(f"kernel vs plain: ghost_norm {what} a {str(a.dtype)[6:]}, g "
+        f"{str(g.dtype)[6:]}: max|err| {float(err.max()):.3e}, max rel "
+        f"{rel:.3e} (rtol {GHOST_RTOL:g}), second launch "
+        f"{'identical' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ghost_norm disagrees with its plain "
+                             "version, or with itself")
+    return float(err.max())
+
+
 def ghost_vs_plain(dev) -> float:
-    """ghost_norm against its plain version on every case in every (a, g)
-    dtype pair (|kernel - plain| <= GHOST_RTOL * |plain| + 1e-6), and
-    against a second launch bit for bit; returns the largest
-    |kernel - plain|."""
+    """``_ghost_check`` on every case in every (a, g) dtype pair; returns
+    the largest |kernel - plain|."""
     worst = 0.0
     cases = [(c, False, 0) for c in GHOST_TEST_CASES + GHOST_EDGE_CASES] + \
         [(c, False, off) for c, off in GHOST_OFFSET_CASES] + \
-        [(c, True, 0) for c in GHOST_TRAIN_SHAPES]
+        [(c, True, 0) for c in [*GHOST_TRAIN_SHAPES, *GHOST_LM_SHAPES]]
     for i, ((b, s, d_in, d_out), unit, offset) in enumerate(cases):
         for a_dtype, g_dtype in GHOST_DTYPES:
             a, g = _ghost_inputs(b, s, d_in, d_out, a_dtype, i, dev,
                                  unit=unit, g_dtype=g_dtype, offset=offset)
-            out = ghost_ops.ghost_norm(a, g)
-            again = ghost_ops.ghost_norm(a, g)
-            ref = ghost_norm_blocked(a, g)
-            torch.cuda.synchronize()
-            if out.shape != (b,) or out.dtype != torch.float32:
-                raise AssertionError(f"kernel output {tuple(out.shape)} "
-                                     f"{out.dtype}, expected ({b},) float32")
-            err = (out - ref).abs()
-            same = torch.equal(out, again)
-            ok = bool(torch.all(err <= GHOST_RTOL * ref.abs() + 1e-6)) and \
-                same
-            rel = float((err / ref.abs().clamp(min=1e-30)).max())
-            say(f"kernel vs plain: ghost_norm B={b} S={s} d_in={d_in} "
-                f"d_out={d_out} a {str(a_dtype)[6:]}, g {str(g_dtype)[6:]}"
-                f"{f', offset {offset}' if offset else ''}: max|err| "
-                f"{float(err.max()):.3e}, max rel {rel:.3e} (rtol "
-                f"{GHOST_RTOL:g}), second launch "
-                f"{'identical' if same else 'DIFFERS'} "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError("ghost_norm disagrees with its plain "
-                                     "version, or with itself")
-            worst = max(worst, float(err.max()))
+            what = (f"B={b} S={s} d_in={d_in} d_out={d_out}"
+                    f"{f', offset {offset}' if offset else ''}")
+            worst = max(worst, _ghost_check(a, g, what))
+    return worst
+
+
+@contextlib.contextmanager
+def recording_ghost_inputs():
+    """Keep a copy of the first (a, g) of every shape and dtype pair that
+    the training path hands ``ghost_norm`` (through ``core.ghost``); the
+    kernel runs and counts its launches as before.  Yields the dict
+    {(b, s, d_in, d_out, a dtype, g dtype): (a, g)}."""
+    seen: dict = {}
+    real = ghost_lib.ghost_norm
+
+    def recording(a, g):
+        key = (*a.shape, g.shape[-1], a.dtype, g.dtype)
+        if key not in seen:
+            seen[key] = (a.detach().clone(), g.detach().clone())
+        return real(a, g)
+
+    with mock.patch.object(ghost_lib, "ghost_norm", recording):
+        yield seen
+
+
+def path_ghost_vs_plain(seen: dict, what: str) -> float:
+    """``_ghost_check`` on the inputs ``recording_ghost_inputs`` kept, after
+    the path's launches were read; returns the largest |kernel - plain|."""
+    if not seen:
+        raise AssertionError(f"{what}: ghost_norm saw no inputs")
+    worst = 0.0
+    for (b, s, d_in, d_out, _, _), (a, g) in seen.items():
+        worst = max(worst, _ghost_check(
+            a, g, f"{what}'s B={b} S={s} d_in={d_in} d_out={d_out}"))
     return worst
 
 
@@ -2464,6 +2552,372 @@ def mia_path(dev, smi) -> None:
         f"(printed only: {case['shadows']} shadows are too few to decide it)")
 
 
+# -- 18. the scenario suite: presets at full size, capacity-lm, the CLI -----------
+
+SCENARIO_PRESETS = ("lm-full", "gemini-full", "gemini-5hospital",
+                    "gemini-5hospital-churn")
+
+
+def _ghost_per_participant(model_size: str) -> int:
+    """``ghost_norm`` launches per participant and round of an "lm" preset:
+    one per dense layer (q, k, v, o, gate, up, down) and one for the head,
+    as phase 6 counts 225 = 7 x 32 + 1."""
+    return 7 * presets_lib.lm_model_config(model_size).n_layers + 1
+
+
+def _fresh_epsilon(spec, silos, rounds: int) -> float:
+    """ε of a fresh ``RDPAccountant`` at the arm's rate · q after
+    ``rounds`` steps."""
+    acct = RDPAccountant(
+        sampling_rate=spec.batch_size / sum(len(p) for p in silos)
+        * spec.participation_rate,
+        noise_multiplier=spec.noise_multiplier, delta=DPConfig().delta)
+    acct.step(rounds)
+    return acct.epsilon()
+
+
+def _span_ms(events, name: str) -> list[float]:
+    return [round(1e3 * e["dur"], 1) for e in events
+            if e["type"] == "span" and e["name"] == name]
+
+
+def scenario_presets(dev, smi) -> tuple[int, float]:
+    """Phase 18, first part: ``run_spec`` on the four presets at full size
+    on ``sim``; ``ghost_norm`` held against its plain version on the inputs
+    ``lm-full`` gave it.  Returns ``lm-full``'s ghost_norm launches and the
+    largest |kernel - plain| on them."""
+    lm_launches, lm_err = 0, 0.0
+    for name in SCENARIO_PRESETS:
+        spec = scenario_lib.get_preset(name)
+        seen = []
+        real_forward = tf.forward
+
+        def forward(cfg, params, batch):
+            out = real_forward(cfg, params, batch)
+            seen.append((out[0].device.type, out[0].shape[0]))
+            return out
+
+        ghost_ops.reset_launches()
+        reset_jit_dispatches()
+        with obs.recording() as rec, recording_ghost_inputs() as inputs, \
+                mock.patch.object(tf, "forward", forward):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            row = scenario_lib.run_spec(spec, device=str(dev))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            events = rec.events()
+        launches, calls = ghost_ops.launches(), jit_dispatches()
+        silos = presets_lib.build_silos(spec)
+        eps = _fresh_epsilon(spec, silos, row["rounds_completed"])
+        rounds_ms = _span_ms(events, "round")
+        say(f"scenario {name}: task {spec.task}, {spec.model_size} "
+            f"({row['model_params']:,} parameters), {spec.hospitals} "
+            f"hospitals, {spec.examples:,} examples, batch "
+            f"{spec.batch_size}, sigma {spec.noise_multiplier}, SecAgg "
+            f"{spec.use_secagg}, {spec.arm} on {spec.backend}, on {smi}: "
+            f"{row['rounds_completed']} rounds, ε {row['epsilon']:.6f} "
+            f"(accountant {eps:.6f}), accuracy {row['accuracy']:.4f}, mean "
+            f"loss {row['mean_loss']}, sim wall {row['wall_clock']:.6f} s, "
+            f"{row['bytes_on_wire']:,.0f} bytes on the wire, "
+            f"{row['dropout_events']} dropouts, {row['recoveries']} "
+            f"recoveries, {row['lost_rounds']} lost rounds, "
+            f"{row['events']} events, {row['noise_topups']} top-ups; "
+            f"{calls} program calls, ghost_norm launches {launches}; round "
+            f"host ms {rounds_ms}; host s {row['host_seconds']:.3f} "
+            f"(with the metric {wall:.3f})")
+        if row["epsilon"] != eps:
+            raise AssertionError(f"{name}: ε {row['epsilon']} != {eps}")
+        if not 0.0 <= row["accuracy"] <= 1.0 or row["rounds_completed"] < 1:
+            raise AssertionError(f"{name}: {row}")
+        if spec.task == "lm":
+            expected = (_ghost_per_participant(spec.model_size)
+                        * spec.hospitals * spec.rounds)
+            if calls != spec.rounds or launches != expected:
+                raise AssertionError(
+                    f"{name}: {calls} program calls, ghost_norm launched "
+                    f"{launches} times, expected {spec.rounds} and "
+                    f"{expected}")
+            n_seq = spec.examples // spec.hospitals * spec.hospitals
+            if (dev.type, n_seq) not in seen or any(d != dev.type
+                                                    for d, _ in seen):
+                raise AssertionError(f"{name}: the pooled metric's forward "
+                                     f"did not run on the card: {seen[-3:]}")
+            shapes = {key[:4] for key in inputs}
+            if not shapes <= set(GHOST_LM_SHAPES):
+                raise AssertionError(
+                    f"{name}: ghost_norm shapes {sorted(shapes)} outside "
+                    f"phase 3's GHOST_LM_SHAPES")
+            lm_launches = launches
+            lm_err = path_ghost_vs_plain(inputs, name)
+        elif launches:
+            raise AssertionError(f"{name}: ghost_norm launched {launches}")
+    return lm_launches, lm_err
+
+
+# a ghost cell of capacity-lm against its per-example twin: the same noise
+# and batches, clipped by norms that differ only in float32 rounding
+SWEEP_TWIN_LOSS_ATOL = 1e-5   # the CPU test's limit (test_torch_scenarios)
+SWEEP_TWIN_ACC_ATOL = 1e-3   # a few of the pooled metric's tokens
+
+
+def scenario_sweep(dev, smi, tmp: Path) -> float:
+    """Phase 18, second part: the ``capacity-lm`` sweep (6 cells on
+    ``ideal``) into a fresh cache, each ghost cell's ε, mean loss and
+    accuracy against its per-example twin, ``ghost_norm`` against its
+    plain version on the inputs the ghost cells gave it, the replay served
+    wholly from the cache, and ``python -m repro_torch.scenarios --run
+    gemini-small``.  Returns the largest |kernel - plain|."""
+    specs = scenario_lib.get_sweep("capacity-lm").specs()
+    cache = scenario_lib.ResultCache(tmp / "cache")
+    launches, inputs = {}, {}
+
+    def counting(spec):
+        ghost_ops.reset_launches()
+        with recording_ghost_inputs() as seen:
+            row = scenario_lib.run_spec(spec, device=str(dev))
+            torch.cuda.synchronize()
+        launches[spec.name] = ghost_ops.launches()
+        inputs[spec.name] = seen
+        return row
+
+    first = scenario_lib.run_sweep(specs, cache, runner=counting)
+    for spec, row in zip(specs, first.results):
+        expected = (_ghost_per_participant(spec.model_size) * spec.hospitals
+                    * spec.rounds if spec.clipping == "ghost" else 0)
+        say(f"sweep capacity-lm {spec.model_size} {spec.clipping}, on {smi}:"
+            f" {row['model_params']:,} parameters, ε {row['epsilon']:.6f}, "
+            f"accuracy {row['accuracy']:.4f}, mean loss "
+            f"{row['mean_loss']:.4f}, host s {row['host_seconds']:.3f}, "
+            f"ghost_norm launches {launches[spec.name]} (expected "
+            f"{expected})")
+        if launches[spec.name] != expected:
+            raise AssertionError(f"{spec.name}: {launches[spec.name]} "
+                                 f"ghost_norm launches, expected {expected}")
+    rows = {(spec.model_size, spec.clipping): row
+            for spec, row in zip(specs, first.results)}
+    worst = 0.0
+    for spec in specs:
+        if spec.clipping != "ghost":
+            continue
+        g, f = rows[(spec.model_size, "ghost")], \
+            rows[(spec.model_size, "per-example")]
+        d_loss = abs(g["mean_loss"] - f["mean_loss"])
+        d_acc = abs(g["accuracy"] - f["accuracy"])
+        say(f"sweep capacity-lm {spec.model_size}: ghost vs per-example, "
+            f"on {smi}: ε {g['epsilon']!r} / {f['epsilon']!r}, mean loss "
+            f"{g['mean_loss']!r} / {f['mean_loss']!r} (|diff| {d_loss:.3e},"
+            f" atol {SWEEP_TWIN_LOSS_ATOL:g}), accuracy {g['accuracy']!r} / "
+            f"{f['accuracy']!r} (|diff| {d_acc:.3e}, atol "
+            f"{SWEEP_TWIN_ACC_ATOL:g})")
+        if g["epsilon"] != f["epsilon"] or \
+                g["model_params"] != f["model_params"] or \
+                not d_loss <= SWEEP_TWIN_LOSS_ATOL or \
+                not d_acc <= SWEEP_TWIN_ACC_ATOL:
+            raise AssertionError(f"capacity-lm {spec.model_size}: the ghost "
+                                 f"cell disagrees with its per-example twin")
+        worst = max(worst, path_ghost_vs_plain(
+            inputs[spec.name], f"capacity-lm {spec.model_size}"))
+
+    def refuse(spec):
+        raise AssertionError(f"{spec.name} missed the cache")
+
+    again = scenario_lib.run_sweep(specs, cache, runner=refuse)
+    say(f"sweep capacity-lm replay: {again.hits} hits, {again.misses} "
+        f"misses, rows equal to the first run's: "
+        f"{again.results == first.results}")
+    if (first.misses, again.hits, again.misses) != (6, 6, 0) or \
+            again.results != first.results:
+        raise AssertionError("the capacity-lm replay was not served from "
+                             "the cache")
+    out = tmp / "run.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.scenarios", "--run",
+         "gemini-small", "--cache-dir", str(tmp / "cli-cache"), "--out",
+         str(out)], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    cell = (json.loads(out.read_text())["cells"][0] if proc.returncode == 0
+            else {})
+    say(f"scenarios CLI --run gemini-small: exit {proc.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s; {cell.get('rounds_completed')} "
+        f"rounds, ε {cell.get('epsilon')}, accuracy {cell.get('accuracy')}")
+    if proc.returncode != 0 or not cell:
+        raise AssertionError(f"the scenarios CLI failed:\n{proc.stderr}")
+    return worst
+
+
+# -- 19. the population backend: 1000 hospitals, trace then solve --------------
+
+POPULATION_CELL = dict(model_size="full", features=None, examples=40114,
+                       hospitals=1000, arm="decaph", noise_multiplier=0.8,
+                       rounds=5, seed=0)
+PROFILED_HOSPITALS = 10
+
+
+def population_cli(smi, tmp: Path) -> None:
+    """``python -m repro_torch.population`` over the reference's
+    ``population-scaling`` cells at seed 0, re-traced for determinism."""
+    out = tmp / "population.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.population", "--hospitals",
+         "50,200,1000", "--seeds", "0", "--check-determinism", "--out",
+         str(out)], cwd=ROOT, capture_output=True, text=True, timeout=400,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if proc.returncode != 0:
+        raise AssertionError(f"the population CLI failed:\n{proc.stderr}")
+    cells = json.loads(out.read_text())["cells"]
+    for c in cells:
+        say(f"population {c['arm']} H={c['hospitals']}: linear model, 16 "
+            f"features, 6,000 examples, q {c['participation_rate']}, "
+            f"k-regular degree 8, 5% flaky, on {smi}: "
+            f"{c['rounds_completed']} rounds, sim {c['wall_clock']:.6f} s, "
+            f"host {c['host_seconds']:.3f} s (solve "
+            f"{c['solve_wall_seconds']:.3f}), {c['graph_nodes']} graph "
+            f"nodes, graph {c['graph_hash']}, empirical q "
+            f"{c['empirical_q']:.4f}, mean cohort {c['mean_cohort']:.1f}, "
+            f"ε {c['epsilon']:.6f}, accuracy {c['accuracy']:.4f}, "
+            f"re-trace identical {c.get('determinism_checked')}")
+    say(f"population CLI: {len(cells)} cells in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if len(cells) != 6 or not all(c.get("determinism_checked")
+                                  for c in cells):
+        raise AssertionError("the population CLI's cells or re-traces")
+
+
+def population_paper_width(dev, smi) -> None:
+    """The paper's GEMINI width over 1000 hospitals on ``population``: ε at
+    rate · q, one program call per executed round, cohorts below H."""
+    spec = scenario_lib.get_sweep("population-scaling").base.replace(
+        name="population/paper-width", **POPULATION_CELL)
+    model, silos, cfg, nodes, topo = scenario_lib.build_scenario(
+        spec, device=str(dev))
+    arm = arms.get("decaph")(model, silos, cfg)
+    runner = PopulationRunner(nodes, topo)
+    reset_jit_dispatches()
+    with obs.recording() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = runner.run(arm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events = rec.events()
+    calls = jit_dispatches()
+    trace, solved = runner.last_trace, runner.last_solve
+    executed = [p for p in trace.rounds if not p.lost]
+    eps = _fresh_epsilon(spec, silos, report.rounds_completed)
+    acc = presets_lib.pooled_metric(spec, model, report.params, silos)
+    t = report.timing
+    say(f"population paper width: MLP 436-300-100-50-10-1 "
+        f"({n_params(report.params):,} parameters), "
+        f"{spec.hospitals} hospitals, {spec.examples:,} admissions, q "
+        f"{spec.participation_rate}, decaph sigma {spec.noise_multiplier}, "
+        f"batch {spec.batch_size}, on {smi}: {report.rounds_completed} "
+        f"rounds of {len(trace.rounds)}, cohorts "
+        f"{[len(p.cohort) for p in trace.rounds]} (mean "
+        f"{solved.mean_cohort:.1f}, empirical q {solved.empirical_q:.4f}), "
+        f"ε {report.epsilon:.6f} (accountant at rate·q {eps:.6f}), "
+        f"{calls} program calls for {len(executed)} executed rounds, "
+        f"{solved.graph_nodes} graph nodes, graph {solved.graph_hash}, sim "
+        f"{t.wall_clock:.6f} s, {t.bytes_on_wire:,.0f} bytes, "
+        f"{t.dropout_events} dropouts, {t.lost_rounds} lost rounds, "
+        f"{t.noise_topups} top-ups; host ms: trace "
+        f"{_span_ms(events, 'population.trace')}, round "
+        f"{_span_ms(events, 'round')}, fused_round "
+        f"{_span_ms(events, 'fused_round')}, aggregate "
+        f"{_span_ms(events, 'aggregate')}; solve {solved.wall_seconds:.3f} "
+        f"s, run {wall:.3f} s; pooled accuracy {acc:.4f}")
+    if report.epsilon != eps or calls != len(executed) or \
+            not solved.mean_cohort < spec.hospitals or \
+            report.rounds_completed < 1:
+        raise AssertionError(f"population: ε {report.epsilon} vs {eps}, "
+                             f"{calls} calls for {len(executed)} rounds, "
+                             f"mean cohort {solved.mean_cohort}")
+    # where the trace's host time goes: one re-trace on fresh nodes and
+    # topology under cProfile (which slows it), byte-identical to the first
+    pop = PopulationSpec.from_dict({"hospitals": spec.hospitals,
+                                    "seed": spec.seed, **spec.population})
+    retracer = PopulationRunner(nodes_from_trace(pop.build_nodes()),
+                                Topology.from_trace(pop.build_topology()))
+    prof = cProfile.Profile()
+    again = prof.runcall(retracer.trace, arm)
+    stats = pstats.Stats(prof).stats
+    total = sum(tt for _, _, tt, _, _ in stats.values())
+    neighbors = sum(ct for (_, _, fn), (_, _, _, ct, _) in stats.items()
+                    if fn == "neighbors")
+    same = again.graph.to_json_bytes() == trace.graph.to_json_bytes()
+    say(f"population trace profile: a re-trace under cProfile, {total:.3f} "
+        f"s of host time, Topology.neighbors {neighbors / total:.1%} of it "
+        f"(a scan of every directed link per call); graph identical: {same}")
+    if not same:
+        raise AssertionError("the re-trace differs from the trace")
+    # the first hospitals of the largest cohort: the step loops over them,
+    # and a profile of all of them (600 kernels each) takes a minute to read
+    largest = max(executed, key=lambda p: len(p.cohort))
+    _profile_cohort_step(smi, f"population round profile: paper width, "
+                         f"round {largest.t}'s cohort of "
+                         f"{len(largest.cohort)} cut to "
+                         f"{PROFILED_HOSPITALS}", arm, report.params,
+                         list(largest.cohort[:PROFILED_HOSPITALS]),
+                         largest.t)
+
+
+def _profile_cohort_step(smi, what: str, arm, params, cohort, t) -> None:
+    """One fused cohort step of round ``t``'s ``cohort`` under
+    ``torch.profiler`` (outside the run: its counts are read already):
+    host wall, device busy time and idle share, and the device kernels."""
+    rng = np.random.default_rng(SEED)
+    busy_us, _, prof_ms, spans = _device_profile(
+        lambda: arm.fused_round(params, cohort, t, rng, len(cohort)))
+    say(f"{what}: one fused cohort step of {len(cohort)} hospitals, on "
+        f"{smi}: wall {prof_ms:.1f} ms with the profiler on, device busy "
+        f"{busy_us / 1e3:.1f} ms, idle {1 - busy_us / 1e3 / prof_ms:.1%}; "
+        f"{len(spans)} device kernels ({len(spans) / len(cohort):.0f} per "
+        f"hospital)")
+
+
+def population_vs_ideal(dev, smi) -> float:
+    """q = 1: ``lm-full``'s model and silos under decaph at sigma 0 on
+    ``population`` (full topology) bit for bit ``ideal``, through
+    ``ghost_norm`` the same number of times; the kernel held against its
+    plain version on the inputs ``population`` gave it.  Returns the
+    largest |kernel - plain|."""
+    spec = scenario_lib.get_preset("lm-full").replace(
+        backend="ideal", noise_multiplier=0.0, rounds=3)
+    model, silos, cfg, _, _ = scenario_lib.build_scenario(spec,
+                                                          device=str(dev))
+    runs = {}
+    for backend, kw in (("ideal", {}),
+                        ("population", {"topo": Topology.full(len(silos))})):
+        ghost_ops.reset_launches()
+        with recording_ghost_inputs() as inputs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            report = arms.run("decaph", model, silos, cfg, backend=backend,
+                              **kw)
+            torch.cuda.synchronize()
+        runs[backend] = (report, ghost_ops.launches(),
+                         time.perf_counter() - t0)
+    (ideal, n_ideal, w_ideal), (popl, n_pop, w_pop) = runs["ideal"], \
+        runs["population"]
+    same = ideal.rounds_completed == popl.rounds_completed and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(ideal.params),
+                                          tree_leaves(popl.params)))
+    expected = _ghost_per_participant("full") * len(silos) * spec.rounds
+    say(f"population q=1: lm-full's model and silos, decaph sigma 0, "
+        f"{spec.rounds} rounds, on {smi}: parameters bit-identical to "
+        f"ideal's: {same}; ghost_norm launches {n_pop} (ideal {n_ideal}, "
+        f"expected {expected}); wall s {w_pop:.3f} (ideal {w_ideal:.3f})")
+    if not same or n_pop != n_ideal or n_pop != expected:
+        raise AssertionError("population at q = 1 is not ideal's")
+    worst = path_ghost_vs_plain(inputs, "population q=1")
+    _profile_cohort_step(smi, "lm-full round profile",
+                         arms.get("decaph")(model, silos, cfg), popl.params,
+                         list(range(len(silos))), 0)
+    return worst
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -2521,6 +2975,21 @@ def main() -> int:
     del pancreas
     torch.cuda.empty_cache()
     mia_path(dev, smi)
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    lm_launches, lm_err = scenario_presets(dev, smi)
+    launches["ghost_norm"] += lm_launches
+    with tempfile.TemporaryDirectory(prefix="scenarios-",
+                                     dir=ROOT / "build") as tmp:
+        sweep_err = scenario_sweep(dev, smi, Path(tmp))
+        t19 = time.perf_counter()
+        population_cli(smi, Path(tmp))
+    population_paper_width(dev, smi)
+    torch.cuda.empty_cache()
+    worst["ghost_norm"] = max(worst["ghost_norm"], lm_err, sweep_err,
+                              population_vs_ideal(dev, smi))
+    say(f"phases 18-19: {time.perf_counter() - t18:.1f} s (phase 18 "
+        f"{t19 - t18:.1f} s, phase 19 {time.perf_counter() - t19:.1f} s)")
     lines = [{**k, "launches": launches[k["name"]],
               "max_abs_err": worst[k["name"]], **times[k["name"]]}
              for k in KERNELS]

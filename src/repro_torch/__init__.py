@@ -37,10 +37,10 @@ tabular and DenseNet models and their synthetic hospital data):
     layout out.
 
 Entry points run on ``device="cuda"`` unless the caller passes
-``device="cpu"``; importing ``repro_torch.device`` (done here) turns TF32
-off so float32 products are full float32.
+``device="cpu"`` (``repro_torch.device.resolve_device``); importing
+``repro_torch.device`` turns TF32 off so float32 products are full
+float32.  ``tree`` and ``kernels``, which every module that computes on
+tensors imports, import it first.  The package itself imports no torch:
+the host-only layers (``population``'s trace phase, ``scenarios``'
+specs, cache, grid and reports, ``sim``, ``obs``) load without it.
 """
-
-from repro_torch.device import resolve_device
-
-__all__ = ["resolve_device"]

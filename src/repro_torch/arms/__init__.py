@@ -33,8 +33,9 @@ drop out (dropout-robust SecAgg recovers their pads):
 Registered arms, as in the reference: decaph, fl (FedSGD/FedAvg), fedprox
 (proximal-term FedAvg), scaffold (control-variate FedAvg), primia
 (local-DP FL), local (silo-only), gossip (async D-PSGD), gossip-dp
-(local-DP D-PSGD).  Registered backends: ``ideal`` and ``sim``
-(``backends.backend_names()``).
+(local-DP D-PSGD).  Registered backends: ``ideal``, ``sim`` and the
+trace-then-solve ``population`` (``backends.backend_names()``), the only
+one that honours ``participation_rate < 1``.
 """
 
 from __future__ import annotations

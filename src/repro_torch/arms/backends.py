@@ -16,10 +16,10 @@ combination the record rules out, with the rule that rejected it, before
 any compute.  ``bit_exact_group``: backends sharing a group promise
 bit-identical trajectories under ideal conditions.
 
-The port registers ``ideal`` and ``sim`` (``arms.runners``); the
-reference's ``shard`` and ``population`` backends are still to port, and
-asking for one raises a ``ValueError`` naming its ROADMAP.md item.  This
-module imports no tensor code: the backend classes are loaded on first
+The port registers ``ideal`` and ``sim`` (``arms.runners``) and
+``population`` (``population.backend``); the reference's ``shard``
+backend runs across cards and asking for it raises a ``ValueError``
+naming its ROADMAP.md item.  The backend classes are loaded on first
 registry access.
 """
 
@@ -38,12 +38,14 @@ if TYPE_CHECKING:  # pragma: no cover
 DEFAULT_BACKEND = "ideal"
 
 # Importing one of these modules registers its backend(s).
-_BACKEND_MODULES = ("repro_torch.arms.runners",)   # ideal + sim
+_BACKEND_MODULES = (
+    "repro_torch.arms.runners",       # ideal + sim
+    "repro_torch.population.backend",  # population
+)
 
 # The reference's backends that the port does not run yet.
 _NOT_PORTED = {
     "shard": "ROADMAP.md, Queue 1 item 7 (multi-GPU)",
-    "population": "ROADMAP.md, Queue 1 item 6 (the population solve)",
 }
 
 
@@ -220,6 +222,47 @@ def validate_run(arm_cls: type, info: BackendInfo, cfg: "ArmConfig") -> None:
         arm_cls, info, use_secagg=cfg.use_secagg,
         fused_rounds=cfg.fused_rounds,
         participation_rate=cfg.participation_rate,
+    )
+    if err is not None:
+        raise ValueError(err)
+
+
+def validate_scenario(
+    *,
+    arm: str,
+    backend: str,
+    use_secagg: bool,
+    needs_sim_time: bool,
+    participation_rate: float = 1.0,
+) -> None:
+    """Capability-gate a ``ScenarioSpec`` at construction time.
+
+    Unknown backends are always an error (the backend axis *is* the
+    registry); an unknown arm is left for the executor to reject so specs
+    can be built before optional arm modules load.
+    """
+    try:
+        info = get_backend(backend).info
+    except KeyError:
+        raise ValueError(
+            f"backend {backend!r} not registered; registered backends: "
+            f"{', '.join(backend_names())}"
+        ) from None
+    if needs_sim_time and not info.supports_sim_time:
+        raise ValueError(
+            f"spec pins node traces / topology / stragglers but backend "
+            f"{backend!r} does not execute simulated time (it would "
+            f"silently ignore them); use a backend with supports_sim_time"
+        )
+    import repro_torch.arms as arms_lib  # deferred: the torch-importing path
+
+    try:
+        arm_cls = arms_lib.get(arm)
+    except KeyError:
+        return  # executor fails loudly on unknown arms (with the arm list)
+    err = compatibility_error(
+        arm_cls, info, use_secagg=use_secagg,
+        participation_rate=participation_rate,
     )
     if err is not None:
         raise ValueError(err)

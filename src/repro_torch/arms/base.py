@@ -107,7 +107,9 @@ class ArmConfig:
     fedprox_mu: float = 0.1        # proximal-term weight for "fedprox"
     leader_strategy: str = "uniform"
     fused_rounds: bool = True      # cohort step (False: per participant)
-    participation_rate: float = 1.0  # < 1 is refused: no backend subsamples
+    participation_rate: float = 1.0  # Poisson cohort subsampling q (only
+                                     # the population backend; 1.0 = every
+                                     # hospital, every round)
     clipping: str = "auto"         # "auto" | "ghost" | "per-example"
     seed: int = 0
     eval_every: int = 0            # 0 = never (the population backend's)
@@ -292,6 +294,11 @@ class RoundArm(Arm):
     distributed_noise = False     # DP noise rides per-participant shares, so
                                   # a lost upload under-noises the sum (the
                                   # backend owes a top-up)
+
+    def round_cost(self, i: int) -> int:
+        """Expected examples participant ``i`` processes in one round (the
+        trace phase's compute-time model; actual draws happen at solve)."""
+        return min(self.cfg.batch_size, len(self.participants[i]))
 
     def clipped_grad_sum_fn(self, pad: int):
         """Model-aware clipped-grad-sum seam (DESIGN.md §12): the ghost path

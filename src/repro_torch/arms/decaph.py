@@ -99,6 +99,11 @@ class DeCaPHArm(RoundArm):
             return max(2, self.cfg.secagg_threshold or 2), None
         return 2, None
 
+    def round_cost(self, i: int) -> int:
+        # expected Poisson draw, not the full batch: at H=1000 a hospital
+        # contributes rate * |shard| examples per round in expectation
+        return max(1, int(round(self.rate * len(self.participants[i]))))
+
     def facilitator(self, t: int, active: Sequence[int]) -> int:
         leader = int(self.leaders[t])
         if leader in active:

@@ -27,7 +27,9 @@ Differences from the reference: ``cfg.remat`` is not honoured (every
 activation is kept for the backward; the card's shapes fit without it),
 and the embedding norm groups repeated tokens by sorting and differencing
 float64 cumulative sums instead of a float32 segment-sum, so no scatter
-(atomics on the card) decides a norm.
+(atomics on the card) decides a norm; and the embedding's clipped
+gradient is accumulated in a fixed order (sorted indices on the card,
+serial on the CPU), never by atomics, so a round is bit-reproducible.
 """
 
 from __future__ import annotations
@@ -168,10 +170,20 @@ class _DPEmbed(torch.autograd.Function):
         (tokens,) = ctx.saved_tensors
         embbar = None
         if ctx.needs_input_grad[0]:
+            flat = tokens.reshape(-1)
+            rows = ybar.reshape(-1, ybar.shape[-1]).float()
             embbar = torch.zeros(ctx.emb_shape, dtype=torch.float32,
-                                 device=ybar.device).index_add_(
-                0, tokens.reshape(-1),
-                ybar.reshape(-1, ybar.shape[-1]).float()).to(ctx.emb_dtype)
+                                 device=ybar.device)
+            # a token's rows in a fixed order on either device, so a round
+            # is bit-reproducible: on the card index_put_ sorts the indices
+            # (index_add_ would add with atomics, in an order that varies
+            # by run), on the CPU index_add_ adds serially (index_put_
+            # would add in parallel)
+            if embbar.is_cuda:
+                embbar.index_put_((flat,), rows, accumulate=True)
+            else:
+                embbar.index_add_(0, flat, rows)
+            embbar = embbar.to(ctx.emb_dtype)
         if ctx.needs_input_grad[2]:
             collbar = collbar + _per_example_embed_norm(tokens, ybar).to(
                 collbar.dtype)

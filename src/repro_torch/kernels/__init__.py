@@ -6,6 +6,8 @@ import functools
 
 import torch
 
+import repro_torch.device  # noqa: F401  (pins TF32 off)
+
 KERNEL_SOURCES = ("decode_attention", "flash_attention", "ghost_norm")
 
 

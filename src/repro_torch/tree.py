@@ -12,6 +12,8 @@ from typing import Any, Callable
 
 import torch
 
+import repro_torch.device  # noqa: F401  (pins TF32 off)
+
 Tree = Any  # a tensor, or a dict whose values are trees
 
 

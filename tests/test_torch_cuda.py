@@ -305,3 +305,27 @@ def test_predict_fn_runs_the_kernel_with_grad_mode_on(dev):
     with torch.no_grad():
         logits, _ = tf.forward(cfg, params, {"tokens": tokens})
     assert torch.equal(pred, torch.argmax(logits[:, -1], dim=-1))
+
+
+def test_population_at_q1_is_ideal_bit_for_bit_through_ghost_norm(dev):
+    """A decaph round through the ghost path is bit-reproducible on the
+    card (the embedding's gradient is summed in sorted order, not by
+    atomics), so ``population`` at q = 1 is ``ideal`` bit for bit, with
+    the same ``ghost_norm`` launches (29 per participant and round)."""
+    import repro_torch.arms as arms
+    import repro_torch.scenarios as sc
+    from repro_torch.sim import Topology
+    from repro_torch.tree import tree_leaves
+
+    spec = sc.get_preset("lm-full").replace(backend="ideal", rounds=2,
+                                            noise_multiplier=0.0)
+    model, silos, cfg, _, _ = sc.build_scenario(spec, device=str(dev))
+    runs = []
+    for backend, kw in (("ideal", {}), ("ideal", {}),
+                        ("population", {"topo": Topology.full(4)})):
+        ghost_ops.reset_launches()
+        rep = arms.run("decaph", model, silos, cfg, backend=backend, **kw)
+        runs.append((tree_leaves(rep.params), ghost_ops.launches()))
+    for leaves, launches in runs[1:]:
+        assert launches == runs[0][1] == 29 * 4 * 2
+        assert all(torch.equal(a, b) for a, b in zip(runs[0][0], leaves))

@@ -70,16 +70,27 @@ def test_list_and_smoke_return_0(capsys):
     assert run.main(["--list"]) == 0
     listed = capsys.readouterr().out
     assert "decaph" in listed and "secagg=True" in listed
-    # the arms as the reference lists them, and both registered backends
+    # the arms as the reference lists them, and the three registered
+    # backends, population's line as the reference's
     assert listed.splitlines()[:9] == jrun_list()[:9]
     backend_lines = listed.split("backends:\n")[1].splitlines()
-    assert [l.split()[0] for l in backend_lines] == ["ideal", "sim"]
-    assert "sim_time=True group=host" in backend_lines[1]
+    assert [l.split()[0] for l in backend_lines] == ["ideal", "population",
+                                                     "sim"]
+    assert "sim_time=True group=host" in backend_lines[2]
+    assert backend_lines[1] in jrun_list()
     assert run.main(["--smoke", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "all registered arms passed" in out
     ran = {tuple(l.split()[:2]) for l in out.splitlines() if "rounds=" in l}
-    assert ran == {(a, b) for a in arms.names() for b in ("ideal", "sim")}
+    # the fused-only population backend runs the fused round arms and
+    # rules out the node arms, as the reference's smoke does
+    fused = {a for a in arms.names()
+             if getattr(arms.get(a), "fused_capable", False)}
+    assert fused == {"decaph", "fl", "fedprox", "primia", "scaffold"}
+    assert ran == {(a, b) for a in arms.names() for b in ("ideal", "sim")} | \
+        {(a, "population") for a in fused}
+    ruled = {l.split()[0] for l in out.splitlines() if "ruled out" in l}
+    assert ruled == set(arms.names()) - fused
 
 
 def jrun_list() -> list[str]:

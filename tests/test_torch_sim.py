@@ -296,9 +296,15 @@ def test_sim_refuses_what_it_cannot_run(setup):
         arms.run("fl", setup["tmodel"], setup["tsilos"], cfg(),
                  backend="sim", nodes=sim.nodes_from_trace(
                      sim.heterogeneous_trace(H - 1)))
-    for name, item in (("shard", "item 7"), ("population", "item 6")):
-        with pytest.raises(ValueError, match=item):
-            arms.run("fl", setup["tmodel"], setup["tsilos"], cfg(),
-                     backend=name)
-    with pytest.raises(KeyError, match="registered backends: ideal, sim"):
+    with pytest.raises(ValueError, match="item 7"):
+        arms.run("fl", setup["tmodel"], setup["tsilos"], cfg(),
+                 backend="shard")
+    # the fused-only population backend refuses a node arm, as the
+    # reference's does
+    with pytest.raises(ValueError, match="only executes fused-capable round "
+                                         "arms; arm 'gossip'"):
+        arms.run("gossip", setup["tmodel"], setup["tsilos"], cfg(),
+                 backend="population")
+    with pytest.raises(KeyError,
+                       match="registered backends: ideal, population, sim"):
         backends.get_backend("tpu")
