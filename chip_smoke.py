@@ -15,11 +15,16 @@ script exits non-zero, printing no result:
      shared memory and spills as ``ptxas -v`` reported them, and the HMMA
      (tensor-core) instructions of each flash and ghost-norm kernel where
      ``cuobjdump`` exists (the bf16 flash kernels and every ghost-norm
-     instantiation, one per (a, g) dtype pair, must have some);
+     instantiation, one per (a, g) dtype pair, must have some); the
+     decode kernel must have its split and combine kernels at every head
+     dim it takes (32, 64, 128, 192, 256) in both dtypes, with no spills
+     at 192 and 256;
   3. kernel vs plain — each kernel against its plain PyTorch version on
      the card, in bfloat16 and float32, and against a second launch on the
      same inputs bit for bit: ``decode_attention`` at the shapes of
-     ``tests/test_kernels.py``, the serving shape and a long cache, with
+     ``tests/test_kernels.py``, the serving shape and a long cache, the
+     model zoo's decode shapes (phase 20: head dims 128, 192 and 256,
+     groups 1, 6, 8 and 12), with
      per-row indices that include 0 and L-1, and at the edges of its split
      kernel's chunks (index 0, one below, at and one above a chunk
      boundary, a window across two chunks, L not a multiple of the chunk,
@@ -187,6 +192,39 @@ script exits non-zero, printing no result:
      and silos at q = 1, sigma 0, 3 rounds on ``population`` bit for bit
      ``ideal`` (``torch.equal``), with the same ``ghost_norm`` launches.
 
+ 20. the model zoo served — after every earlier phase's memory is
+     released (at least 64 GB free), Qwen3-30B-A3B (MoE, 128 experts top-8,
+     30.53 B parameters) at full width in bf16, seeded on the card (init
+     peak below 64 GB), behind ``ServeEngine`` with the decode kernel: 8
+     slots x 512, 16 requests at 4 q/s through ``run_open_loop`` (prompts
+     and outputs of 8-32 tokens): every request served, 48
+     ``decode_attention`` launches per position, one program call per
+     decode step and two per admission; tok/s, TTFT and TPOT p50/p99, a
+     decode step's host and device ms and the device's idle share; one
+     ``moe_apply`` at the decode shape under
+     ``set_sync_debug_mode("error")``; the decode step twice and two
+     greedy runs of 4 prompts bit for bit.  Then Gemma-7B (D 256),
+     Qwen2-VL-2B (M-RoPE, group 6), OLMo-1B (``ln_nonparam``) at full width
+     and Nemotron-4-340B at full width and 2 of its 96 layers (D 192, group
+     12): ``batch_generate`` of 8 prompts of 8 tokens x 16 greedy tokens
+     in bf16 with the kernel and with ``decode_kernel=False``: n_layers
+     launches per position and none without, ms per step, the rows whose
+     tokens agree (bf16 near-ties split some), and every layer's kernel
+     output of the first decode step held against its plain version on
+     that layer's own q, k and v at phase 3's bf16 limit; then the same
+     width in float32 (phase 5's check): greedy tokens with and without
+     the kernel identical, teacher-forced logits within atol 1e-3;
+ 21. DeCaPH on the zoo's families — OLMo-1B at full width (untied head,
+     non-parametric LayerNorm) on 4 ``token_silos`` hospitals x 32 x 256
+     tokens, batch 16, sigma 1.0, 2 rounds with ghost clipping: ε a fresh
+     accountant's, one program call per round, ``ghost_norm`` launches per
+     participant and round = its dense weights per layer x 16 + 1 (113),
+     the round walls; every (a, g) shape the path gave the kernel (d 2048
+     -> 8192, 8192 -> 2048, 2048 -> 50304 among them) held against the
+     plain version at rtol 1e-4 and a second launch; Qwen3-30B-A3B's smoke
+     config in 2 rounds of faithful DeCaPH (per-example gradients through
+     the MoE dispatch) at sigma 0, run twice, bit for bit.
+
 Artifacts and caches of phases 18–19 go into a temp dir under ``build/``.
 The next-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
@@ -198,6 +236,7 @@ import cProfile
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -219,8 +258,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch.arms as arms  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import dense_stack, param_count  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs.base import (  # noqa: E402
+    active_param_count,
+    dense_stack,
+    param_count,
+)
 from repro_torch.core import ghost as ghost_lib  # noqa: E402
 from repro_torch.core.accountant import RDPAccountant  # noqa: E402
 from repro_torch.core.dp import DPConfig  # noqa: E402
@@ -233,6 +276,7 @@ from repro_torch.kernels.flash_attention.ref import attention_plain  # noqa: E40
 from repro_torch.kernels.ghost_norm import ops as ghost_ops  # noqa: E402
 from repro_torch.kernels.ghost_norm.ops import ghost_norm_blocked  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve.federation import token_silos, transformer_model  # noqa: E402
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
@@ -311,7 +355,25 @@ KERNEL_CASES = [
     (8, 512, 15, 5, 64, None, None),
     (8, 4096, 15, 5, 64, None, None),
     (8, 512, 15, 1, 64, None, 128),
+    # the zoo's decode shapes (phase 20): Qwen3-30B-A3B's 8 slots x 512 (32
+    # query heads on 4 KV heads of 128), the batch_generate caches of
+    # Gemma-7B (16 on 16 of 256), Qwen2-VL-2B (12 on 2 of 128), OLMo-1B (16
+    # on 16 of 128) and Nemotron-4-340B (96 on 8 of 192), the two new head
+    # dims at 512 rows, and a window at D = 256
+    (8, 512, 32, 4, 128, None, None),
+    (8, 64, 16, 16, 256, None, None),
+    (8, 64, 12, 2, 128, None, None),
+    (8, 64, 16, 16, 128, None, None),
+    (8, 64, 96, 8, 192, None, None),
+    (8, 512, 16, 16, 256, None, None),
+    (8, 512, 96, 8, 192, None, None),
+    (2, 300, 16, 16, 256, 150, 64),
 ]
+# decode_attention at the zoo's new head dims, timed beside the main shape:
+# Gemma-7B's and Nemotron-4-340B's attention at 8 slots x 512
+NEW_HEAD_DIMS = (192, 256)    # the decode kernel's, added for the zoo
+ZOO_DECODE_SHAPES = [dict(b=8, l=512, h=16, kv=16, d=256),
+                     dict(b=8, l=512, h=96, kv=8, d=192)]
 
 # ghost_norm (b, s, d_in, d_out): the shapes of tests/test_kernels.py, then
 # the training shapes — B=16 rows of S=256 tokens through SmolLM-360M's dense
@@ -416,6 +478,11 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
+def lap(t0: float, done: str) -> None:
+    """The script's seconds so far, after the phases ``done`` names."""
+    say(f"elapsed: {time.perf_counter() - t0:.1f} s after {done}")
+
+
 # -- 1. card --------------------------------------------------------------------
 
 
@@ -458,6 +525,21 @@ def build() -> None:
                 f"{r['registers']} registers, {r['smem']} B static shared "
                 f"memory, {r['stack']} B stack, spills {r['spill_stores']} B "
                 f"stored / {r['spill_loads']} B loaded")
+    decode = {_short(r["kernel"]): r
+              for r in _build.resources("decode_attention")}
+    for d in decode_ops.HEAD_DIMS:
+        for dt in ("float", "__nv_bfloat16"):
+            rows = [decode.get(f"decode_{part}_kernel<{dt}, {d}>")
+                    for part in ("split", "combine")]
+            if None in rows:
+                raise AssertionError(f"decode_attention.cu has no kernels "
+                                     f"for {dt} at head_dim {d}")
+            if d in NEW_HEAD_DIMS and any(r["spill_stores"] for r in rows):
+                raise AssertionError(f"decode_attention.cu spills at "
+                                     f"head_dim {d}")
+    say(f"resources: decode_attention.cu split + combine kernels for head "
+        f"dims {decode_ops.HEAD_DIMS} in float32 and bf16; no spills at "
+        f"{NEW_HEAD_DIMS}")
     for ta, tg in GHOST_DTYPES:
         blocks = ghost_ops.blocks_per_sm(ta, tg)
         say(f"resources: ghost_norm.cu ghost_norm_tiles a {str(ta)[6:]}, g "
@@ -528,7 +610,8 @@ def _decode_split_cases(dev) -> list:
     the chunk ``split_plan`` gives the case's shapes."""
     cases = []
     for l, h, kv, d in [(512, 15, 5, 64), (1000, 15, 5, 64),
-                        (1000, 8, 1, 128), (300, 4, 2, 32)]:
+                        (1000, 8, 1, 128), (300, 4, 2, 32),
+                        (1000, 96, 8, 192), (1000, 16, 16, 256)]:
         n, c = decode_ops.split_plan(8, l, kv, decode_ops.sm_count(dev))
         cases += [
             ([0] * 8, l, h, kv, d, None, "index 0"),
@@ -734,6 +817,32 @@ def flash_vs_plain(dev) -> float:
 # -- 4. the serve main path -----------------------------------------------------------
 
 
+def _check_open_loop(mcfg, requests, result, calls, launches) -> int:
+    """Every request served to its budget with tokens in the vocabulary,
+    one program call per decode step and two per admission, and n_layers
+    decode_attention launches per position; returns the decode steps."""
+    done = sorted(result.completed, key=lambda r: r.rid)
+    if [r.rid for r in done] != [r.rid for r in requests]:
+        raise AssertionError(f"{len(done)} of {len(requests)} requests "
+                             "completed")
+    short = [r.rid for r in done if len(r.tokens) != r.max_new_tokens]
+    if short:
+        raise AssertionError(f"requests {short} ended short of their budget")
+    if not all(0 <= t < mcfg.vocab_size for r in done for t in r.tokens):
+        raise AssertionError("a sampled token lies outside the vocabulary")
+    steps = result.decode_steps
+    if result.decode_dispatches != steps or calls != steps + 2 * len(done):
+        raise AssertionError(f"program calls {calls} (decode "
+                             f"{result.decode_dispatches}) for {steps} decode "
+                             f"steps and {len(done)} admissions")
+    prefill_positions = sum(len(r.prompt) for r in requests)
+    if launches != mcfg.n_layers * (steps + prefill_positions):
+        raise AssertionError(f"decode_attention launched {launches} times, "
+                             f"expected {mcfg.n_layers} x ({steps} decode "
+                             f"steps + {prefill_positions} prefill positions)")
+    return steps
+
+
 def main_path(dev, smi: str):
     """Serve a seeded open-loop trace at full width; returns the engine and
     each kernel's launches in that run."""
@@ -754,25 +863,8 @@ def main_path(dev, smi: str):
     launches = decode_ops.launches()
     calls = jit_dispatches()
 
-    done = sorted(result.completed, key=lambda r: r.rid)
-    if [r.rid for r in done] != [r.rid for r in requests]:
-        raise AssertionError(f"{len(done)} of {len(requests)} requests "
-                             "completed")
-    short = [r.rid for r in done if len(r.tokens) != r.max_new_tokens]
-    if short:
-        raise AssertionError(f"requests {short} ended short of their budget")
-    if not all(0 <= t < vocab for r in done for t in r.tokens):
-        raise AssertionError("a sampled token lies outside the vocabulary")
-    steps = result.decode_steps
-    if result.decode_dispatches != steps or calls != steps + 2 * len(done):
-        raise AssertionError(f"program calls {calls} (decode "
-                             f"{result.decode_dispatches}) for {steps} decode "
-                             f"steps and {len(done)} admissions")
+    steps = _check_open_loop(mcfg, requests, result, calls, launches)
     positions = steps + prefill_positions
-    if launches != mcfg.n_layers * positions:
-        raise AssertionError(f"decode_attention launched {launches} times, "
-                             f"expected {mcfg.n_layers} x ({steps} decode "
-                             f"steps + {prefill_positions} prefill positions)")
     row = summarize(result, slots=8, rate=16)
     say(f"main path: {ARCH} full width {str(mcfg.cdtype)[6:]}, 8 slots x 512,"
         f" 16 requests @ 16 q/s on {smi}: {row['throughput_tok_s']} tok/s, "
@@ -1256,6 +1348,24 @@ def device_ms(fn, arg_sets, reps: int) -> float:
                              for i in range(reps))
 
 
+def graph_ms(graph, reps: int) -> float:
+    """Median device time of one replay of a CUDA graph, each replay alone
+    between two CUDA events on an idle stream: a replay is one host call,
+    so the events bracket its device work and the launch's few
+    microseconds.  (Replays queued behind a sleep, as ``device_ms`` does,
+    block once a graph has more kernels than the launch queue holds, as
+    a Qwen3-30B-A3B decode step's several thousand do.)"""
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def _library_decode(q, k, v, mask):
     # one PyTorch call for the same function: SDPA with the KV heads shared
     # by their query groups (a yardstick only; the port never calls it)
@@ -1601,7 +1711,7 @@ def profile_round(dev, smi, train, ghost) -> None:
         f"round")
 
 
-def time_decode_step(engine, smi, position: int = SERVE_POSITION) -> None:
+def time_decode_step(engine, smi, position: int = SERVE_POSITION) -> dict:
     """One full-width decode step of every slot at ``position``: its time on
     the host clock (call + synchronise), its time on the device (the same
     step captured in a CUDA graph and replayed, so the host's per-op cost
@@ -1626,18 +1736,19 @@ def time_decode_step(engine, smi, position: int = SERVE_POSITION) -> None:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         tf.decode_step_positions(*args)
-    step_ms = device_ms(graph.replay, [()], 20)
+    step_ms = graph_ms(graph, 20)
     q = torch.randn((slots, 1, mcfg.n_heads, mcfg.head_dim), device=dev
                     ).to(mcfg.cdtype)
     layers = [(q, engine.cache["k"][i], engine.cache["v"][i], positions)
               for i in range(mcfg.n_layers)]     # each layer's cache, cold
     kernel_ms = device_ms(decode_ops.decode_attention, layers, 64)
-    say(f"decode step: {ARCH} full width bfloat16, {slots} slots at position"
-        f" {position} of {engine.cfg.max_len}, medians, on {smi}: host "
-        f"{host_ms:.4f} ms, device {step_ms:.4f} ms (CUDA graph replay), "
+    say(f"decode step: {mcfg.name} full width bfloat16, {slots} slots at "
+        f"position {position} of {engine.cfg.max_len}, medians, on {smi}: "
+        f"host {host_ms:.4f} ms, device {step_ms:.4f} ms (CUDA graph replay), "
         f"device idle {100 * (1 - step_ms / host_ms):.1f}% of the host step;"
         f" decode_attention {kernel_ms:.4f} ms x {mcfg.n_layers} layers = "
         f"{100 * mcfg.n_layers * kernel_ms / step_ms:.1f}% of the device step")
+    return {"host_ms": host_ms, "step_ms": step_ms, "kernel_ms": kernel_ms}
 
 
 # -- 12. hot swap: phase 6's published rounds into a serving engine --------------
@@ -2918,6 +3029,413 @@ def population_vs_ideal(dev, smi) -> float:
     return worst
 
 
+# -- 20. the model zoo served at full width ----------------------------------------
+
+QWEN3 = "qwen3-moe-30b-a3b"
+# free bytes on the card before Qwen3-30B-A3B's init: its 61.06 GB of bf16
+# weights, the 402 MB cache and the decode step's buffers; and the most its
+# init may hold at once (the weights plus one layer's float32 draw)
+QWEN3_FREE = 64e9
+QWEN3_INIT_PEAK = 64e9
+# the open-loop trace (prompts and outputs of 8-32 tokens; cut: its length)
+ZOO_TRACE = dict(rate=4, n_requests=16)
+# (arch, layers kept): full width; Nemotron-4-340B at 2 of its 96 layers
+# (16.3 B parameters, 32.7 GB), the depth one card takes
+ZOO_SERVE = [("gemma-7b", None), ("qwen2-vl-2b", None), ("olmo-1b", None),
+             ("nemotron-4-340b", 2)]
+ZOO_PROMPTS, ZOO_PROMPT_LEN, ZOO_GEN = 8, 8, 16
+
+
+def _free_card() -> int:
+    """Release what earlier phases left to the allocator; the card's free
+    bytes."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def _n_norm_scales(cfg) -> int:
+    # param_count leaves the norms' scales out: two per layer and the
+    # final one under RMSNorm, none under ln_nonparam
+    return (2 * cfg.n_layers + 1) * cfg.d_model if cfg.norm == "rmsnorm" \
+        else 0
+
+
+def _init_counted(cfg, dev, what: str):
+    """Seeded parameters on the card; checks their count against
+    ``param_count`` and prints the init's seconds and peak memory."""
+    free = _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init(cfg, SEED, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(t.numel() for t in tree_leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    if n != param_count(cfg) + _n_norm_scales(cfg):
+        raise AssertionError(f"{what}: {n} parameters, param_count "
+                             f"{param_count(cfg)} + norm scales")
+    say(f"zoo init: {what}, {n:,} parameters ({nbytes / 1e9:.2f} GB), free "
+        f"before {free / 1e9:.2f} GB, init {init_s:.2f} s, peak allocated "
+        f"{peak / 1e9:.2f} GB")
+    return params, free, peak
+
+
+def _moe_without_host_sync(engine, params) -> None:
+    """One MoE layer at the decode step's shape (a row per group) under
+    ``set_sync_debug_mode("error")``: anything that waits for the host
+    raises."""
+    mcfg, dev, slots = engine.model_cfg, engine.device, engine.cfg.slots
+    x = torch.randn((slots, 1, mcfg.d_model), device=dev).to(mcfg.cdtype)
+    layer = {name: t[0] for name, t in params["layers"].items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, _ = moe_lib.moe_apply(layer, x, mcfg, groups=slots)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError("non-finite MoE output")
+
+
+def serve_qwen3(dev, smi) -> int:
+    """Phase 20, first part: Qwen3-30B-A3B at full width, bf16, seeded on
+    the card, served over a seeded open-loop trace; returns its
+    decode_attention launches."""
+    cfg = get_config(QWEN3)
+    free = _free_card()
+    if free < QWEN3_FREE:
+        raise AssertionError(f"{free / 1e9:.2f} GB free before {QWEN3}'s "
+                             f"init, need {QWEN3_FREE / 1e9:g}")
+    params, _, peak = _init_counted(
+        cfg, dev, f"{QWEN3} full width bf16 ({active_param_count(cfg):,} "
+        "active per token)")
+    if peak >= QWEN3_INIT_PEAK:
+        raise AssertionError(f"{QWEN3}'s init peaked at {peak / 1e9:.2f} GB")
+    engine = ServeEngine(ServeConfig(
+        arch=QWEN3, smoke=False, slots=8, max_len=512, temperature=1.0,
+        seed=SEED, device=str(dev)), model_cfg=cfg, params=params)
+    mcfg = engine.model_cfg
+    batch_generate(engine, np.arange(1, 9, dtype=np.int32)[None], 2)
+    requests = generate_requests(TrafficConfig(
+        vocab_size=cfg.vocab_size, seed=SEED, **ZOO_TRACE))
+    prefill_positions = sum(len(r.prompt) for r in requests)
+    decode_ops.reset_launches()
+    reset_jit_dispatches()
+    result = run_open_loop(engine, requests)
+    launches = decode_ops.launches()
+    calls = jit_dispatches()
+    steps = _check_open_loop(mcfg, requests, result, calls, launches)
+    row = summarize(result, slots=8, rate=ZOO_TRACE["rate"])
+    say(f"zoo serve: {QWEN3} full width bf16, 8 slots x 512, "
+        f"{ZOO_TRACE['n_requests']} requests @ {ZOO_TRACE['rate']} q/s on "
+        f"{smi}: {row['throughput_tok_s']} tok/s, TTFT p50/p99 "
+        f"{row['ttft_p50_ms']}/{row['ttft_p99_ms']} ms, TPOT p50/p99 "
+        f"{row['tpot_p50_ms']}/{row['tpot_p99_ms']} ms; {steps} decode steps "
+        f"+ {prefill_positions} prefill positions, {calls} program calls, "
+        f"decode_attention launches {launches} "
+        f"({launches // (steps + prefill_positions)} per position)")
+    say("zoo serve row: " + json.dumps(row, sort_keys=True))
+    time_decode_step(engine, smi)
+    _moe_without_host_sync(engine, params)
+
+    # the MoE decode step twice on the same cache and inputs, and two greedy
+    # runs of 4 prompts: equal bit for bit
+    tokens = torch.arange(1, 9, dtype=torch.int32, device=dev)[:, None]
+    positions = torch.tensor([0, 5, 17, 64, 100, 200, 300, 511],
+                             dtype=torch.int32, device=dev)
+    first, _ = tf.decode_step_positions(mcfg, params, engine.cache, tokens,
+                                        positions)
+    second, _ = tf.decode_step_positions(mcfg, params, engine.cache, tokens,
+                                         positions)
+    same_step = torch.equal(first, second)
+    del engine, first, second
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (4, 4)).astype(np.int32)
+    greedy = []
+    for _ in range(2):
+        engine = ServeEngine(ServeConfig(
+            arch=QWEN3, smoke=False, slots=4, max_len=16, temperature=0.0,
+            seed=SEED, device=str(dev)), model_cfg=cfg, params=params)
+        greedy.append(batch_generate(engine, prompts, 6))
+        del engine
+    same_tokens = np.array_equal(*greedy)
+    ok = same_step and same_tokens
+    say(f"zoo serve: {QWEN3} moe_apply at the decode shape (8 groups of 1) "
+        f"under set_sync_debug_mode('error'): no host sync; decode step twice"
+        f" {'bit-identical' if same_step else 'DIFFERS'}; two greedy runs of "
+        f"4 prompts x 6 tokens {'equal' if same_tokens else 'DIFFER'} "
+        f"{greedy[0].tolist()} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{QWEN3}'s decode does not repeat bit for bit")
+    del params
+    return launches
+
+
+@contextlib.contextmanager
+def capturing_decode_step(slots: int, n_layers: int):
+    """Keep the inputs and output of the first ``n_layers`` decode kernel
+    calls with ``slots`` rows (one batched decode step; prefills have one
+    row), the caches cloned; the kernel runs and counts as before.  Yields
+    the list of (q, k, v, index, window, out)."""
+    seen = []
+    real = attn_lib.decode_attention
+
+    def capture(q, k, v, index, *, window=None):
+        out = real(q, k, v, index, window=window)
+        if q.shape[0] == slots and len(seen) < n_layers:
+            seen.append((q.clone(), k.clone(), v.clone(), index.clone(),
+                         window, out.clone()))
+        return out
+
+    with mock.patch.object(attn_lib, "decode_attention", capture):
+        yield seen
+
+
+def _layers_vs_plain(seen: list, what: str) -> float:
+    """Each captured layer's kernel output against ``decode_attention_plain``
+    on that layer's own q, k, v at phase 3's bf16 limit; returns the largest
+    |kernel - plain|."""
+    atol, rtol = DECODE_TOL[torch.bfloat16]
+    errs, bad = [], []
+    for i, (q, k, v, index, window, out) in enumerate(seen):
+        ref = decode_attention_plain(q, k, v, index, window=window).float()
+        err = (out.float() - ref).abs()
+        errs.append(float(err.max()))
+        if not bool(torch.all(err <= atol + rtol * ref.abs())):
+            bad.append(i)
+    say(f"zoo serve: {what}, first decode step, each layer's kernel output vs"
+        f" decode_attention_plain on its own q, k, v: max|err| "
+        f"{max(errs):.3e} (atol {atol:g}, rtol {rtol:g}) at "
+        f"{len(seen) - len(bad)} of {len(seen)} layers "
+        f"{'ok' if not bad else 'FAIL'}")
+    if bad or not seen:
+        raise AssertionError(f"{what}: the decode kernel disagrees with its "
+                             f"plain version on real activations at layers "
+                             f"{bad}")
+    return max(errs)
+
+
+def _zoo_float32_path(cfg, dev, what: str) -> None:
+    """Phase 5's check at the arch's width in float32: greedy tokens with
+    the kernel and with the plain attention equal, teacher-forced logits
+    within atol 1e-3."""
+    cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    params = tf.init(cfg, SEED, dev)
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, ZOO_PROMPT_LEN)).astype(np.int32)
+    gen = 8
+    tokens = {}
+    for kernel in (True, False):
+        engine = ServeEngine(ServeConfig(
+            arch=cfg.name, slots=1, max_len=ZOO_PROMPT_LEN + gen,
+            temperature=0.0, decode_kernel=kernel, device=str(dev)),
+            model_cfg=cfg, params=params)
+        tokens[kernel] = batch_generate(engine, prompt, gen)[0]
+        del engine
+    seq = np.concatenate([prompt[0], tokens[True][:-1]]).astype(np.int32)
+    logits = {}
+    for kernel in (True, False):
+        c = cfg.replace(use_decode_kernel=kernel)
+        cache = tf.init_cache(c, 1, seq.size, dev)
+        rows = []
+        for i in range(seq.size):
+            step = torch.from_numpy(seq[None, i:i + 1]).to(dev)
+            rows.append(tf.decode_step(c, params, cache, step, i)[0].float())
+        logits[kernel] = torch.cat(rows[ZOO_PROMPT_LEN - 1:], dim=1)
+    worst = float((logits[True] - logits[False]).abs().max())
+    same = np.array_equal(tokens[True], tokens[False])
+    ok = same and worst <= 1e-3 and bool(torch.isfinite(logits[True]).all())
+    say(f"zoo serve: {what} in float32, {ZOO_PROMPT_LEN}-token prompt + {gen}"
+        f" greedy tokens, kernel vs plain attention: tokens "
+        f"{'identical' if same else 'DIFFER'}, teacher-forced logits "
+        f"max|diff| {worst:.3e} (atol 1e-3) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the decode kernel and the plain "
+                             "attention disagree over the float32 path")
+
+
+def serve_zoo_dense(dev, smi) -> tuple[int, float]:
+    """Phase 20, second part: each dense arch at full width (Nemotron at 2
+    layers): greedy ``batch_generate`` in bf16 with the decode kernel and
+    with the model's plain attention, the kernel held against its plain
+    version on every layer of a decode step's real activations, and the
+    float32 path's tokens and logits; returns the kernel's launches and the
+    largest |kernel - plain| on those activations."""
+    total, worst = 0, 0.0
+    for arch, layers in ZOO_SERVE:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.replace(n_layers=layers, stack=dense_stack(layers))
+        what = f"{arch}" + (f" ({layers} layers)" if layers else "")
+        params, _, _ = _init_counted(
+            cfg, dev, f"{arch} full width bf16"
+            + (f", {layers} of 96 layers" if layers else ""))
+        prompts = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (ZOO_PROMPTS, ZOO_PROMPT_LEN)).astype(np.int32)
+        out, ms, launches = {}, {}, {}
+        positions = 0
+        for kernel in (True, False):
+            engine = ServeEngine(ServeConfig(
+                arch=arch, smoke=False, slots=ZOO_PROMPTS,
+                max_len=ZOO_PROMPT_LEN + ZOO_GEN, temperature=0.0,
+                decode_kernel=kernel, seed=SEED, device=str(dev)),
+                model_cfg=cfg, params=params)
+            batch_generate(engine, prompts[:1, :2], 1)       # warm-up
+            steps0 = engine.decode_steps
+            decode_ops.reset_launches()
+            with capturing_decode_step(ZOO_PROMPTS, cfg.n_layers) as seen:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[kernel] = batch_generate(engine, prompts, ZOO_GEN)
+                torch.cuda.synchronize()
+                ms[kernel] = (time.perf_counter() - t0) * 1e3
+                launches[kernel] = decode_ops.launches()
+                layer_io = list(seen)
+            positions = engine.decode_steps - steps0 + prompts.size
+            ms[kernel] /= positions
+            del engine
+            if kernel:
+                kernel_io = layer_io
+        if launches != {True: cfg.n_layers * positions, False: 0}:
+            raise AssertionError(f"{arch}: decode_attention launched "
+                                 f"{launches}, expected {cfg.n_layers} per "
+                                 f"position with the kernel, 0 without")
+        total += launches[True]
+        worst = max(worst, _layers_vs_plain(kernel_io, f"{what} bf16"))
+        del kernel_io
+        rows_equal = int((out[True] == out[False]).all(axis=1).sum())
+        say(f"zoo serve: {what} full width bf16, D={cfg.head_dim}, "
+            f"{cfg.n_heads} query heads on {cfg.n_kv_heads}, batch_generate "
+            f"{ZOO_PROMPTS} prompts x {ZOO_PROMPT_LEN} + {ZOO_GEN} greedy "
+            f"tokens on {smi}: ms per step (prefill positions and decode "
+            f"steps) kernel {ms[True]:.2f}, plain {ms[False]:.2f}; "
+            f"decode_attention {launches[True] // positions} launches per "
+            f"position; {rows_equal} of {ZOO_PROMPTS} rows' tokens equal "
+            f"(bf16 near-ties may split the rest)")
+        del params
+        _free_card()
+        _zoo_float32_path(cfg, dev, what)
+        _free_card()
+    return total, worst
+
+
+# -- 21. DeCaPH on the zoo's families ------------------------------------------------
+
+# OLMo-1B at full width (untied head): 4 hospitals x 32 sequences of 256
+# tokens, batch 16, sigma 1.0, 2 rounds, ghost clipping
+OLMO = "olmo-1b"
+OLMO_TRAIN = dict(hospitals=4, n_per=32, seq_len=256, rounds=2, batch_size=16,
+                  lr=0.05, clip=1.0, sigma=1.0)
+# the ghost_norm shapes that are new on this path: d 2048 -> 8192 (up,
+# gate), 8192 -> 2048 (down), 2048 -> 50304 (the head)
+OLMO_GHOST_WIDTHS = {(2048, 8192), (8192, 2048), (2048, 50304)}
+
+
+def train_olmo(dev, smi) -> tuple[int, float]:
+    """Phase 21, first part: DeCaPH with ghost clipping on OLMo-1B; returns
+    the ghost_norm launches and the largest |kernel - plain| on the inputs
+    the path gave the kernel."""
+    _free_card()
+    t = OLMO_TRAIN
+    mcfg = get_config(OLMO).replace(tie_embeddings=False)
+    model = transformer_model(mcfg, device=str(dev))
+    if model.ghost is None:
+        raise AssertionError(f"{OLMO}: no ghost-clipping capability")
+    silos = token_silos(mcfg, hospitals=t["hospitals"], n_per=t["n_per"],
+                        seq_len=t["seq_len"], seed=SEED)
+    cfg = arms.ArmConfig(
+        rounds=t["rounds"], batch_size=t["batch_size"], lr=t["lr"],
+        seed=SEED, use_secagg=False,
+        dp=DPConfig(clip_norm=t["clip"], noise_multiplier=t["sigma"]))
+    marks = []
+
+    def on_round(_, params):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    ghost_ops.reset_launches()
+    reset_jit_dispatches()
+    with recording_ghost_inputs() as seen:
+        t0 = time.perf_counter()
+        report = arms.run("decaph", model, silos, cfg, backend="ideal",
+                          on_round=on_round)
+        launches = ghost_ops.launches()
+        calls = jit_dispatches()
+    # the rule phase 6 holds, read from the code: one launch per dense
+    # weight of a layer (its "w..." leaves), per layer, and one for the head
+    dense = sum(1 for name in report.params["layers"] if name.startswith("w"))
+    per_participant = dense * mcfg.n_layers + 1
+    expected = per_participant * t["hospitals"] * t["rounds"]
+    if launches != expected:
+        raise AssertionError(f"ghost_norm launched {launches} times, expected "
+                             f"{per_participant} x {t['hospitals']} x "
+                             f"{t['rounds']} = {expected}")
+    if report.rounds_completed != t["rounds"] or calls != t["rounds"]:
+        raise AssertionError(f"{report.rounds_completed} rounds in {calls} "
+                             "program calls")
+    losses = [l.loss for l in report.logs]
+    if not all(math.isfinite(x) for x in losses) or not all(
+            bool(torch.isfinite(p).all()) for p in tree_leaves(report.params)):
+        raise AssertionError(f"non-finite losses {losses} or parameters")
+    acct = RDPAccountant(sampling_rate=t["batch_size"]
+                         / (t["hospitals"] * t["n_per"]),
+                         noise_multiplier=t["sigma"], delta=cfg.dp.delta)
+    acct.step(t["rounds"])
+    if report.epsilon != acct.epsilon():
+        raise AssertionError(f"ε {report.epsilon} != the accountant's "
+                             f"{acct.epsilon()}")
+    widths = {(k[2], k[3]) for k in seen}
+    if not OLMO_GHOST_WIDTHS <= widths:
+        raise AssertionError(f"ghost_norm never saw {OLMO_GHOST_WIDTHS - widths}")
+    round_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    say(f"zoo train: {OLMO} untied head, ln_nonparam, "
+        f"{param_count(mcfg):,} parameters, full width, {t['hospitals']} "
+        f"hospitals x {t['n_per']} x {t['seq_len']} tokens, batch "
+        f"{t['batch_size']}, sigma {t['sigma']}, ghost clipping, on {smi}: "
+        f"{report.rounds_completed} rounds, losses "
+        f"{[round(x, 4) for x in losses]}, ε {report.epsilon:.6f} (accountant"
+        f" {acct.epsilon():.6f}), {calls} program calls, ghost_norm launches "
+        f"{launches} ({per_participant} = {dense} x {mcfg.n_layers} + 1 per "
+        f"participant and round), round wall s "
+        f"{[round(x, 4) for x in round_s]}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del report, model
+    worst = path_ghost_vs_plain(seen, f"{OLMO} decaph")
+    seen.clear()
+    return launches, worst
+
+
+def train_qwen3_smoke(dev, smi) -> None:
+    """Phase 21, second part: Qwen3-30B-A3B's smoke config, 2 rounds of
+    faithful DeCaPH (MoE: per-example gradients through the dispatch) at
+    sigma 0, twice: the same parameters and losses bit for bit."""
+    mcfg = get_smoke_config(QWEN3)
+    model = transformer_model(mcfg, device=str(dev))
+    if model.ghost is not None:
+        raise AssertionError(f"{QWEN3} must take the per-example path")
+    silos = token_silos(mcfg, hospitals=3, n_per=16, seq_len=12, seed=SEED)
+    cfg = arms.ArmConfig(rounds=2, batch_size=8, lr=0.05, seed=SEED,
+                         use_secagg=False,
+                         dp=DPConfig(clip_norm=1.0, noise_multiplier=0.0,
+                                     microbatch_size=8))
+    runs = [arms.run("decaph", model, silos, cfg, backend="ideal")
+            for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(runs[0].params), tree_leaves(runs[1].params)))
+    losses = [[l.loss for l in r.logs] for r in runs]
+    ok = same and losses[0] == losses[1] and all(
+        math.isfinite(x) for x in losses[0])
+    say(f"zoo train: {QWEN3} smoke config, faithful DeCaPH, sigma 0, 2 rounds"
+        f" on {smi}, run twice: parameters "
+        f"{'bit-identical' if same else 'DIFFER'}, losses {losses[0]} and "
+        f"{losses[1]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{QWEN3}'s faithful rounds do not repeat")
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -2928,18 +3446,22 @@ def main() -> int:
     torch.cuda.set_device(dev)
     t0 = time.perf_counter()
     build()
+    lap(t0, "phase 2")
     worst = {"decode_attention": kernel_vs_plain(dev),
              "ghost_norm": ghost_vs_plain(dev),
              "flash_attention": flash_vs_plain(dev)}
+    lap(t0, "phase 3")
     engine, launches = main_path(dev, smi)
     time_decode_step(engine, smi)
     del engine
     whole_path(dev)
+    lap(t0, "phases 4-5")
     torch.cuda.empty_cache()
     ckpt = tempfile.TemporaryDirectory(prefix="ckpt-", dir=ROOT / "build")
     train = train_main_path(dev, smi, ckpt.name)
     launches["ghost_norm"] = train["launches"]
     train_whole_path(dev, train["silos"])
+    lap(t0, "phases 6-7")
     torch.cuda.empty_cache()
     launches["flash_attention"] = eval_main_path(dev, smi, train["params"])
     torch.cuda.empty_cache()
@@ -2949,32 +3471,42 @@ def main() -> int:
                                    eval_layers_bf16(dev))
     torch.cuda.empty_cache()
     blocked_train_path(dev)
+    lap(t0, "phases 8-10")
     torch.cuda.empty_cache()
     times = {"decode_attention": time_decode(SERVE_SHAPE, dev, smi)}
     time_decode(SERVE_SHAPE, dev, smi, position=SERVE_POSITION)
     time_decode(LONG_SHAPE, dev, smi)
+    for shape in ZOO_DECODE_SHAPES:
+        time_decode(shape, dev, smi)
     ghost = time_ghost(dev, smi)
     times["ghost_norm"] = ghost["row"]
     profile_round(dev, smi, train, ghost)
+    del ghost
     torch.cuda.empty_cache()
     times["flash_attention"] = time_flash(dev, smi)
     time_eval_forward(dev, smi, times["flash_attention"]["ms"])
+    lap(t0, "phase 11")
     torch.cuda.empty_cache()
     launches["decode_attention"] += hot_swap_path(dev, smi, train, ckpt.name)
     ckpt.cleanup()
+    lap(t0, "phase 12")
     del train
     torch.cuda.empty_cache()
     pancreas = tabular_main_path(dev, smi)
     torch.cuda.empty_cache()
     tabular_whole_path(dev, smi, pancreas)
+    lap(t0, "phases 13-14")
     torch.cuda.empty_cache()
     launches["ghost_norm"] += comparison_arms_path(dev, smi,
                                                    pancreas["gemini"])
+    lap(t0, "phase 15")
     torch.cuda.empty_cache()
     sim_path(dev, smi, pancreas)
+    lap(t0, "phase 16")
     del pancreas
     torch.cuda.empty_cache()
     mia_path(dev, smi)
+    lap(t0, "phase 17")
     torch.cuda.empty_cache()
     t18 = time.perf_counter()
     lm_launches, lm_err = scenario_presets(dev, smi)
@@ -2990,6 +3522,18 @@ def main() -> int:
                               population_vs_ideal(dev, smi))
     say(f"phases 18-19: {time.perf_counter() - t18:.1f} s (phase 18 "
         f"{t19 - t18:.1f} s, phase 19 {time.perf_counter() - t19:.1f} s)")
+    t20 = time.perf_counter()
+    launches["decode_attention"] += serve_qwen3(dev, smi)
+    dense_launches, dense_err = serve_zoo_dense(dev, smi)
+    launches["decode_attention"] += dense_launches
+    worst["decode_attention"] = max(worst["decode_attention"], dense_err)
+    t21 = time.perf_counter()
+    olmo_launches, olmo_err = train_olmo(dev, smi)
+    launches["ghost_norm"] += olmo_launches
+    worst["ghost_norm"] = max(worst["ghost_norm"], olmo_err)
+    train_qwen3_smoke(dev, smi)
+    say(f"phases 20-21: {time.perf_counter() - t20:.1f} s (phase 20 "
+        f"{t21 - t20:.1f} s, phase 21 {time.perf_counter() - t21:.1f} s)")
     lines = [{**k, "launches": launches[k["name"]],
               "max_abs_err": worst[k["name"]], **times[k["name"]]}
              for k in KERNELS]

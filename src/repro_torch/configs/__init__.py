@@ -2,8 +2,10 @@
 
 ``get_config(arch_id)`` returns the full-size config and
 ``get_smoke_config(arch_id)`` the reduced same-family variant the CPU
-tests use.  Only ``smollm-360m`` is ported; the reference's other
-architectures are listed in ROADMAP.md as still to port.
+tests use.  The ported ids are the reference's decoders whose stack is
+one group of ``LayerSpec("attn", "dense" | "moe")``; the reference's
+other architectures (MLA, Mamba, RWKV6, encoder-decoder) are listed in
+ROADMAP.md as still to port, and asking for one raises.
 """
 
 from __future__ import annotations
@@ -12,6 +14,11 @@ import importlib
 
 ARCHITECTURES = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
+    "olmo-1b": "repro_torch.configs.olmo_1b",
+    "gemma-7b": "repro_torch.configs.gemma_7b",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
 }
 
 
@@ -31,3 +38,7 @@ def get_config(arch_id: str):
 
 def get_smoke_config(arch_id: str):
     return _module(arch_id).smoke_config()
+
+
+def list_archs() -> list[str]:
+    return list(ARCHITECTURES)

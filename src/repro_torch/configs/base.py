@@ -2,10 +2,10 @@
 
 The fields are the reference's, so a config reads the same in both
 packages; ``pdtype``/``cdtype`` return ``torch.dtype``s where the
-reference returns ``jnp.dtype``s.  The port's model code runs only dense
-attention stacks so far (``repro_torch.models.transformer`` raises on the
-rest), but the schema keeps every field so ``param_count`` and future
-slices need no new schema.
+reference returns ``jnp.dtype``s.  The port's model code runs stacks of
+one attention layer kind, dense or MoE (``repro_torch.models.transformer``
+raises on the rest), but the schema keeps every field so ``param_count``
+and future slices need no new schema.
 """
 
 from __future__ import annotations
@@ -183,3 +183,17 @@ def param_count(cfg: ModelConfig) -> int:
                 total += repeat * attn_params()
     total += enc_layers * (attn_params() + ffn_params("dense"))
     return total
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params active per token (MoE: top-k + shared experts only)."""
+    if cfg.n_experts == 0:
+        return param_count(cfg)
+    full = param_count(cfg)
+    d = cfg.d_model
+    per_exp = 3 * d * cfg.expert_d_ff
+    n_moe_layers = sum(
+        r for r, p in cfg.stack for s in p if s.ffn == "moe"
+    )
+    inactive = n_moe_layers * (cfg.n_experts - cfg.moe_top_k) * per_exp
+    return full - inactive

@@ -34,7 +34,8 @@ from repro_torch.models.layers import pname
 from repro_torch.models.transformer import check_supported
 from repro_torch.tree import tree_map
 
-# port layer key -> (reference sub-dict, reference key)
+# port layer key -> (reference sub-dict, reference key); the norms only
+# under RMSNorm (``ln_nonparam`` leaves the reference's norm dicts empty)
 _LAYER_KEYS = {
     "norm1": ("norm1", pname("scale", "embed")),
     "wq": ("mixer", pname("wq", "embed", "qheads")),
@@ -42,10 +43,23 @@ _LAYER_KEYS = {
     "wv": ("mixer", pname("wv", "embed", "kv_heads")),
     "wo": ("mixer", pname("wo", "qheads", "embed")),
     "norm2": ("norm2", pname("scale", "embed")),
+}
+_DENSE_FFN_KEYS = {
     "w_gate": ("ffn", pname("w_gate", "embed", "mlp")),
     "w_up": ("ffn", pname("w_up", "embed", "mlp")),
     "w_down": ("ffn", pname("w_down", "mlp", "embed")),
 }
+# MoE layers: the router, the experts' stacked weights, shared experts
+_MOE_FFN_KEYS = {
+    "w_router": ("ffn", pname("w_router", "embed", "experts")),
+    "w_gate": ("ffn", pname("w_gate", "experts", "embed", "expert_mlp")),
+    "w_up": ("ffn", pname("w_up", "experts", "embed", "expert_mlp")),
+    "w_down": ("ffn", pname("w_down", "experts", "expert_mlp", "embed")),
+    "w_shared_gate": ("ffn", pname("w_shared_gate", "embed", "mlp")),
+    "w_shared_up": ("ffn", pname("w_shared_up", "embed", "mlp")),
+    "w_shared_down": ("ffn", pname("w_shared_down", "mlp", "embed")),
+}
+_ROUTER = "w_router"
 
 
 _EMBED = pname("embed", "vocab", "embed")
@@ -53,34 +67,43 @@ _SCALE = pname("scale", "embed")
 _HEAD = pname("head", "embed", "vocab")
 
 
+def _keys(moe: bool) -> dict:
+    return {**_LAYER_KEYS, **(_MOE_FFN_KEYS if moe else _DENSE_FFN_KEYS)}
+
+
 def _from_layout(tree: dict, leaf, head: bool) -> dict:
     """The port's parameter dict from a tree in the reference's layout,
-    each leaf through ``leaf``."""
+    each leaf through ``leaf(array, port name)``."""
     layer = tree["group0"]["e0"]
+    moe = _MOE_FFN_KEYS[_ROUTER][1] in layer["ffn"]
     params = {
-        "embed": leaf(tree[_EMBED]),
-        "final_norm": leaf(tree["final_norm"][_SCALE]),
+        "embed": leaf(tree[_EMBED], "embed"),
         "layers": {
-            name: leaf(layer[sub][key])
-            for name, (sub, key) in _LAYER_KEYS.items()
+            name: leaf(layer[sub][key], name)
+            for name, (sub, key) in _keys(moe).items()
             if key in layer[sub]
         },
     }
+    if _SCALE in tree["final_norm"]:
+        params["final_norm"] = leaf(tree["final_norm"][_SCALE], "final_norm")
     if head:
-        params["head"] = leaf(tree[_HEAD])
+        params["head"] = leaf(tree[_HEAD], "head")
     return params
 
 
 def _to_layout(params: dict, leaf, head: bool) -> dict:
     """The port's parameters in the reference's pytree, each leaf through
-    ``leaf``."""
-    layer: dict = {}
+    ``leaf``; a config without norm parameters gets the reference's empty
+    norm dicts."""
+    keys = _keys(_ROUTER in params["layers"])
+    layer: dict = {"norm1": {}, "norm2": {}}
     for name, t in params["layers"].items():
-        sub, key = _LAYER_KEYS[name]
+        sub, key = keys[name]
         layer.setdefault(sub, {})[key] = leaf(t)
     out = {
         _EMBED: leaf(params["embed"]),
-        "final_norm": {_SCALE: leaf(params["final_norm"])},
+        "final_norm": ({_SCALE: leaf(params["final_norm"])}
+                       if "final_norm" in params else {}),
         "group0": {"e0": layer},
     }
     if head:
@@ -98,12 +121,14 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 def params_from_jax(np_params: dict, cfg, device=DEFAULT_DEVICE) -> dict:
     """The port's parameters from the reference's (numpy leaves), on
     ``device`` (the card unless the caller asks for the CPU), cast to
-    ``cfg.pdtype``."""
+    ``cfg.pdtype`` (a MoE router stays float32, as the reference keeps it)."""
     check_supported(cfg)
     device = resolve_device(device)
-    return _from_layout(np_params,
-                        lambda a: _tensor(a, cfg.pdtype, device),
-                        head=not cfg.tie_embeddings)
+    return _from_layout(
+        np_params,
+        lambda a, name: _tensor(a, torch.float32 if name == _ROUTER
+                                else cfg.pdtype, device),
+        head=not cfg.tie_embeddings)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -128,7 +153,7 @@ def params_from_tree(tree: dict, device=DEFAULT_DEVICE) -> dict:
     layout (as ``load_checkpoint`` returns it) as the port's parameters on
     ``device``, each leaf in its own dtype (never cast to a config's)."""
     device = resolve_device(device)
-    return _from_layout(tree, lambda t: t.to(device), head=_HEAD in tree)
+    return _from_layout(tree, lambda t, _: t.to(device), head=_HEAD in tree)
 
 
 def cache_to_numpy(cache: dict) -> dict:

@@ -15,8 +15,12 @@ forward threads a collector ``coll`` ([B] float32) through an
     yields every per-example norm^2 plus the seed 1.
 
 A second backward over the clip-weighted loss gives the clipped-sum
-gradient.  Supported: dense decoder stacks with RMSNorm and standard RoPE
-(``transformer.check_supported``); the head may be tied (then the norm is
+gradient.  Supported (``_supported``): the dense decoder stacks the port
+runs — GQA attention, a gated or plain FFN, RMSNorm (its scale collects)
+or non-parametric LayerNorm (nothing to collect), standard RoPE or M-RoPE
+and the VLM stub's ``vision_embeds`` — i.e. smollm / olmo / gemma /
+nemotron / qwen2-vl.  MoE stacks keep the faithful per-example path
+(their dispatch mixes examples).  The head may be tied (then the norm is
 an upper bound, which is why ``serve.federation.transformer_model``
 attaches the capability to untied models only).
 
@@ -45,7 +49,7 @@ from repro_torch.models.attention import (
     _sdpa_blocked,
     rope,
 )
-from repro_torch.models.layers import _act, matmul
+from repro_torch.models.layers import _act, apply_norm, matmul
 from repro_torch.tree import Tree, tree_leaves, tree_map, tree_unflatten
 
 
@@ -198,14 +202,32 @@ def dp_embed(emb, tokens, coll):
 # Ghost forward for dense decoder stacks (loss-identical to transformer.py)
 # ---------------------------------------------------------------------------
 
-def _attn_g(cfg, p, x, positions, coll, with_norms):
+def _supported(cfg) -> bool:
+    """Whether the ghost forward runs ``cfg``: a stack the port runs whose
+    every layer is ``LayerSpec("attn", "dense")`` (the reference's test)."""
+    if cfg.is_encoder_decoder or cfg.n_experts:
+        return False
+    return all(
+        spec.mixer == "attn" and spec.ffn == "dense" and not spec.cross_attn
+        for _, pattern in cfg.stack for spec in pattern
+    )
+
+
+def _norm_g(cfg, scale, x, coll, with_norms):
+    if cfg.norm == "rmsnorm":
+        return dp_rmsnorm(scale, x, coll, with_norms)
+    # non-parametric: nothing to collect
+    return apply_norm(cfg.norm, None, x), coll
+
+
+def _attn_g(cfg, p, x, positions, mrope_positions, coll, with_norms):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, coll = dp_dense(x, p["wq"], coll, with_norms)
     k, coll = dp_dense(x, p["wk"], coll, with_norms)
     v, coll = dp_dense(x, p["wv"], coll, with_norms)
     q, k = rope(q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd), positions,
-                cfg)
+                cfg, mrope_positions)
     v = v.reshape(b, s, kv, hd)
     if cfg.use_flash:   # never the flash kernel: it has no backward
         out = _sdpa_blocked(q, k, v, causal=True, window=cfg.sliding_window)
@@ -230,21 +252,26 @@ def forward_ghost(cfg, params: dict, batch: dict, coll: torch.Tensor, *,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Loss-identical ghost forward -> (per-example mean CE [B], coll)."""
     tf.check_supported(cfg)
+    if not _supported(cfg):
+        raise NotImplementedError(f"{cfg.name}: the ghost path runs dense "
+                                  "stacks; MoE takes the per-example path")
     x, coll = dp_embed(params["embed"], batch["tokens"].long(), coll)
-    x = x.to(cfg.cdtype)
+    x = tf.prefix_vision(cfg, x.to(cfg.cdtype), batch)
     b, s, _ = x.shape
-    positions = tf.positions_of(batch, b, s, x.device)
+    positions, mrope_positions = tf.positions_of(cfg, batch, b, s, x.device)
     for p in tf.layer_params(params["layers"]):
-        h, coll = dp_rmsnorm(p["norm1"], x, coll, with_norms)
-        h, coll = _attn_g(cfg, p, h, positions, coll, with_norms)
+        h, coll = _norm_g(cfg, p.get("norm1"), x, coll, with_norms)
+        h, coll = _attn_g(cfg, p, h, positions, mrope_positions, coll,
+                          with_norms)
         x = x + h
-        h, coll = dp_rmsnorm(p["norm2"], x, coll, with_norms)
+        h, coll = _norm_g(cfg, p.get("norm2"), x, coll, with_norms)
         h, coll = _ffn_g(cfg, p, h, coll, with_norms)
         x = x + h
-    x, coll = dp_rmsnorm(params["final_norm"], x, coll, with_norms)
+    x, coll = _norm_g(cfg, params.get("final_norm"), x, coll, with_norms)
     logits, coll = dp_dense(x, tf.head_of(cfg, params).to(cfg.cdtype), coll,
                             with_norms)
-    return tf.per_example_ce(logits, batch["labels"]), coll
+    return tf.per_example_ce(tf.text_logits(cfg, logits, batch),
+                             batch["labels"]), coll
 
 
 def _norms_of_chunk(cfg, params, bchunk, mchunk):

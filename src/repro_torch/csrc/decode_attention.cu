@@ -37,6 +37,14 @@
 // (B=8, KV=5, L=512) the wrapper's plan gives 8 chunks of 64 rows: 320
 // blocks on 132 SMs, where one block per (b, kv_head) gave 40.
 //
+// Head dims 32, 64, 128, 192 and 256.  The split kernel stages q, a tile
+// of K and V, and the tile's scores in dynamic shared memory as float32:
+// q [16][D], k and v [TK][D+1], p [16][TK].  TK (keys per tile) shrinks as
+// D grows, 64 up to D = 64, 32 up to 128, 16 above, which keeps a block at
+// 23-51 KB and four blocks on an SM; only D = 256 (50.5 KB) passes the
+// 48 KB a kernel gets without asking, and its launch raises the kernel's
+// limit first (cudaFuncAttributeMaxDynamicSharedMemorySize).
+//
 // The wrapper guarantees 16-byte aligned k and v base pointers; with D a
 // multiple of 8 every row slice is then 16-byte aligned too.  It allocates
 // the scratch; the kernels allocate nothing.
@@ -54,6 +62,16 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 16;  // query heads per KV head
 constexpr float kNegInf = -1e30f;
+constexpr int kStaticSmemLimit = 48 * 1024;  // bytes without an opt-in
+
+// keys per tile of the split kernel, and its dynamic shared memory in floats
+__host__ __device__ constexpr int tile_keys(int D) {
+  return D <= 64 ? 64 : D <= 128 ? 32 : 16;
+}
+__host__ __device__ constexpr int split_smem_floats(int D) {
+  return kMaxGroup * D + 2 * tile_keys(D) * (D + 1) +
+         kMaxGroup * tile_keys(D) + 3 * kMaxGroup;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -129,17 +147,20 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ part_acc,
                         float* __restrict__ part_ml, int L, int H, int KV,
                         int window, int chunk, float scale) {
-  constexpr int TK = D <= 64 ? 64 : 32;  // keys per tile (static smem < 48 KB)
-  constexpr int RS = D + 1;              // padded shared row
+  constexpr int TK = tile_keys(D);  // keys per tile
+  constexpr int RS = D + 1;         // padded shared row
   constexpr int ACC = (kMaxGroup * D + kThreads - 1) / kThreads;
 
-  __shared__ float q_s[kMaxGroup][D];
-  __shared__ float k_s[TK][RS];
-  __shared__ float v_s[TK][RS];
-  __shared__ float p_s[kMaxGroup][TK];  // scores, then probabilities
-  __shared__ float m_s[kMaxGroup];      // running max
-  __shared__ float l_s[kMaxGroup];      // running sum
-  __shared__ float alpha_s[kMaxGroup];  // this tile's rescale factor
+  // split_smem_floats(D) floats, carved in this order
+  extern __shared__ float smem[];
+  float(*q_s)[D] = reinterpret_cast<float(*)[D]>(smem);
+  float(*k_s)[RS] = reinterpret_cast<float(*)[RS]>(smem + kMaxGroup * D);
+  float(*v_s)[RS] = k_s + TK;
+  float(*p_s)[TK] = reinterpret_cast<float(*)[TK]>(v_s + TK);  // scores, then
+                                                              // probabilities
+  float* m_s = &p_s[kMaxGroup][0];  // running max
+  float* l_s = m_s + kMaxGroup;     // running sum
+  float* alpha_s = l_s + kMaxGroup;  // this tile's rescale factor
 
   const int bk = blockIdx.x;            // b * KV + kv_head
   const int split = blockIdx.y;
@@ -275,12 +296,16 @@ __global__ void __launch_bounds__(kThreads)
   asm volatile("griddepcontrol.wait;" ::: "memory");
   const float* ml = part_ml + (size_t)bk * n_splits * G * 2;
   const float* pacc = part_acc + (size_t)bk * n_splits * G * D;
+  // not unrolled: unrolled, ptxas spilled a register at D = 192
+#pragma unroll 1
   for (int e = threadIdx.x; e < G * D; e += kThreads) {
     const int g = e / D, d = e % D;
     float m = kNegInf;
+#pragma unroll 1
     for (int s = 0; s < n_splits; ++s)
       if (ml[2 * (s * G + g) + 1] > 0.f) m = fmaxf(m, ml[2 * (s * G + g)]);
     float num = 0.f, den = 0.f;
+#pragma unroll 1
     for (int s = 0; s < n_splits; ++s) {
       const float l = ml[2 * (s * G + g) + 1];
       if (l > 0.f) {  // an empty chunk's acc was never written
@@ -302,7 +327,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* inde
   const int n_splits = (L + chunk - 1) / chunk;
   float* part_acc = scratch;
   float* part_ml = scratch + (size_t)B * H * n_splits * D;  // B*KV*n*G*D
-  decode_split_kernel<T, D><<<dim3(B * KV, n_splits), kThreads, 0, stream>>>(
+  constexpr int smem = split_smem_floats(D) * (int)sizeof(float);
+  if (smem > kStaticSmemLimit) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+  }
+  decode_split_kernel<T, D><<<dim3(B * KV, n_splits), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(index), part_acc,
       part_ml, L, H, KV, window, chunk, scale);
@@ -340,6 +372,12 @@ int launch_dtype(const void* q, const void* k, const void* v,
                                 window, chunk, stream);
     case 128:
       return (int)launch<T, 128>(q, k, v, index, out, scratch, B, L, H, KV,
+                                 window, chunk, stream);
+    case 192:
+      return (int)launch<T, 192>(q, k, v, index, out, scratch, B, L, H, KV,
+                                 window, chunk, stream);
+    case 256:
+      return (int)launch<T, 256>(q, k, v, index, out, scratch, B, L, H, KV,
                                  window, chunk, stream);
     default:
       return (int)cudaErrorInvalidValue;

@@ -31,7 +31,7 @@ from repro_torch.kernels import _build, sm_count
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 
 SOURCE = "decode_attention"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 MAX_GROUP = 16                                   # kMaxGroup in the source
 SPLIT_ROWS = 64           # a chunk is a multiple of this many cache rows
 BLOCKS_PER_SM = 4         # split blocks to aim for, per SM of the card

@@ -17,7 +17,8 @@ Counterpart of the GQA half of ``repro.models.attention``.
     device, and the rope angle, the cache write and the mask of row b all
     use ``index[b]`` without a host sync.
 
-MLA and cross attention are not ported yet.
+Both rotate q and k with standard RoPE or, for ``rope_type="mrope"``,
+Qwen2-VL's M-RoPE.  MLA and cross attention are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,18 +32,29 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import apply_rope, dense_init, matmul
+from repro_torch.models.layers import (
+    dense_init,
+    matmul,
+    mrope_angles,
+    rope_angles,
+    rotate,
+    sin_cos,
+)
 
 NEG_INF = -1e30
 
 
-def gqa_init(cfg, dtype: torch.dtype, generator: torch.Generator) -> dict:
+def gqa_init(cfg, dtype: torch.dtype, generator: torch.Generator,
+             out: dict | None = None) -> dict:
+    """q, k, v and o projections; ``out`` (name -> tensor) receives the
+    draws in place."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    o = out or {}
     return {
-        "wq": dense_init(d, (d, h * hd), dtype, generator),
-        "wk": dense_init(d, (d, kv * hd), dtype, generator),
-        "wv": dense_init(d, (d, kv * hd), dtype, generator),
-        "wo": dense_init(h * hd, (h * hd, d), dtype, generator),
+        "wq": dense_init(d, (d, h * hd), dtype, generator, o.get("wq")),
+        "wk": dense_init(d, (d, kv * hd), dtype, generator, o.get("wk")),
+        "wv": dense_init(d, (d, kv * hd), dtype, generator, o.get("wv")),
+        "wo": dense_init(h * hd, (h * hd, d), dtype, generator, o.get("wo")),
     }
 
 
@@ -153,14 +165,16 @@ def _causal_mask(s: int, l: int, offset: int = 0, window: int | None = None,
 
 
 def gqa_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
-              window: int | None = None, causal: bool = True) -> torch.Tensor:
-    """Full-sequence GQA.  x: [B,S,D]; positions: [B,S] -> [B,S,D]."""
+              window: int | None = None, causal: bool = True,
+              mrope_positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence GQA.  x: [B,S,D]; positions: [B,S] (and
+    ``mrope_positions`` [B,S,3] under M-RoPE) -> [B,S,D]."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _split_heads(matmul(x, p["wq"]), h, hd)
     k = _split_heads(matmul(x, p["wk"]), kv, hd)
     v = _split_heads(matmul(x, p["wv"]), kv, hd)
-    q, k = rope(q, k, positions, cfg)
+    q, k = rope(q, k, positions, cfg, mrope_positions)
     if cfg.use_flash:
         if causal and q.device.type == "cuda":
             out = flash_attention(q, k, v, causal=True, window=window)
@@ -172,15 +186,23 @@ def gqa_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     return matmul(out.reshape(b, s, h * hd), p["wo"])
 
 
-def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, cfg
+def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, cfg,
+         mrope_positions: torch.Tensor | None = None
          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Rotary embedding of q and k at ``positions`` (none for ``"none"``)."""
-    if cfg.rope_type == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet")
-    if cfg.rope_type == "none":
+    """Rotary embedding of q and k: M-RoPE at ``mrope_positions`` [B,S,3]
+    when the config asks for it and they are given, else standard RoPE at
+    ``positions`` (none for ``"none"``), as the reference routes it.  The
+    angles are computed once for both."""
+    d = q.shape[-1]
+    if cfg.rope_type == "mrope" and mrope_positions is not None:
+        ang = mrope_angles(mrope_positions, d, cfg.rope_theta,
+                           cfg.mrope_sections)
+    elif cfg.rope_type == "none":
         return q, k
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta))
+    else:
+        ang = rope_angles(positions, d, cfg.rope_theta)
+    sin, cos = sin_cos(ang)
+    return rotate(q, sin, cos), rotate(k, sin, cos)
 
 
 def gqa_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
@@ -200,7 +222,9 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
     q = _split_heads(matmul(x, p["wq"]), h, hd)
     k_new = _split_heads(matmul(x, p["wk"]), kv, hd)
     v_new = _split_heads(matmul(x, p["wv"]), kv, hd)
-    q, k_new = rope(q, k_new, index[:, None], cfg)             # pos [B,1]
+    pos = index[:, None]                                       # [B,1]
+    # M-RoPE decodes text: the position drives t, h and w alike
+    q, k_new = rope(q, k_new, pos, cfg, pos[..., None].expand(b, 1, 3))
     # attention runs in the cache's dtype (the kernel takes one dtype):
     # a no-op unless float32 parameters promoted the products above a
     # bfloat16 compute dtype, a pair the reference refuses to decode

@@ -1,4 +1,4 @@
-"""Primitive layers: initialisers, RMSNorm, RoPE and the FFN kinds.
+"""Primitive layers: initialisers, the norms, RoPE / M-RoPE and the FFN kinds.
 
 Counterpart of ``repro.models.layers``.  The port keeps its parameters in
 plain dicts of tensors under its own short names; ``pname`` stays so that
@@ -37,23 +37,28 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def trunc_normal(shape, dtype: torch.dtype, stddev: float,
-                 generator: torch.Generator) -> torch.Tensor:
+                 generator: torch.Generator,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """``stddev`` times a unit normal truncated to [-2, 2], drawn in float32.
 
     Like ``jax.random.truncated_normal`` followed by ``* stddev``: the
     truncation is in units of the unit normal and the variance is not
     renormalised (so the std is about 0.88 * stddev).  Not
     ``trunc_normal_(std=stddev)``, which truncates at +-2 in absolute units.
+    Returns a new tensor of ``dtype``, or, given ``out``, casts the draw
+    into it and returns it.
     """
     x = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(x, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=generator)
-    return (stddev * x).to(dtype)
+    x.mul_(stddev)
+    return x.to(dtype) if out is None else out.copy_(x)
 
 
 def dense_init(d_in: int, shape, dtype: torch.dtype,
-               generator: torch.Generator) -> torch.Tensor:
-    return trunc_normal(shape, dtype, 1.0 / math.sqrt(d_in), generator)
+               generator: torch.Generator,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    return trunc_normal(shape, dtype, 1.0 / math.sqrt(d_in), generator, out)
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +72,40 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def layernorm_nonparam(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm (no scale, no bias), in float32,
+    cast back to ``x``'s dtype; the variance is the mean squared deviation,
+    as ``jnp.var`` computes it."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+NORMS = ("rmsnorm", "ln_nonparam")
+
+
+def make_norm(kind: str, d: int, dtype: torch.dtype, device
+              ) -> torch.Tensor | None:
+    """The norm's parameter: a [d] scale of ones for ``rmsnorm``, None for
+    ``ln_nonparam`` (which has none)."""
+    if kind == "rmsnorm":
+        return torch.ones(d, dtype=dtype, device=device)
+    if kind == "ln_nonparam":
+        return None
+    raise ValueError(f"unknown norm {kind!r}")
+
+
+def apply_norm(kind: str, scale: torch.Tensor | None, x: torch.Tensor
+               ) -> torch.Tensor:
+    """The configured norm of ``x`` (``scale`` from ``make_norm``)."""
+    if kind == "rmsnorm":
+        return rmsnorm(x, scale)
+    if kind == "ln_nonparam":
+        return layernorm_nonparam(x)
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -84,15 +123,20 @@ def _act(kind: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_init(d_model: int, d_ff: int, kind: str, dtype: torch.dtype,
-             generator: torch.Generator) -> dict:
-    """kind: swiglu | geglu | relu2 | gelu (non-gated kinds: up+down only)."""
+             generator: torch.Generator, out: dict | None = None) -> dict:
+    """kind: swiglu | geglu | relu2 | gelu (non-gated kinds: up+down only).
+    ``out`` (name -> tensor) receives the draws in place."""
     if kind not in ("swiglu", "geglu", "relu2", "gelu"):
         raise ValueError(f"unknown ffn kind {kind!r}")
+    o = out or {}
     p = {}
     if kind in ("swiglu", "geglu"):
-        p["w_gate"] = dense_init(d_model, (d_model, d_ff), dtype, generator)
-    p["w_up"] = dense_init(d_model, (d_model, d_ff), dtype, generator)
-    p["w_down"] = dense_init(d_ff, (d_ff, d_model), dtype, generator)
+        p["w_gate"] = dense_init(d_model, (d_model, d_ff), dtype, generator,
+                                 o.get("w_gate"))
+    p["w_up"] = dense_init(d_model, (d_model, d_ff), dtype, generator,
+                           o.get("w_up"))
+    p["w_down"] = dense_init(d_ff, (d_ff, d_model), dtype, generator,
+                             o.get("w_down"))
     return p
 
 
@@ -115,6 +159,47 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
+def rope_angles(positions: torch.Tensor, d: int, theta: float
+                ) -> torch.Tensor:
+    """Standard RoPE's float32 angles [..., S, D/2] at ``positions``."""
+    return positions[..., None].float() * rope_freqs(d, theta,
+                                                     positions.device)
+
+
+def mrope_angles(positions_3d: torch.Tensor, d: int, theta: float,
+                 sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE angles [B, S, D/2]: frequency bands split across
+    (t, h, w).  positions_3d: [B, S, 3] (temporal, height, width ids).
+    ``sections`` gives the number of frequency pairs per component; pair i
+    takes its angle from component 0 below ``sections[0]``, 1 below
+    ``sections[0] + sections[1]`` and 2 above (pairs past the sum too, as
+    the reference's ``total_repeat_length`` fills them).  The section ids
+    come from comparisons on the device, so nothing is copied from the
+    host."""
+    dev = positions_3d.device
+    pair = torch.arange(d // 2, device=dev)
+    sec_ids = ((pair >= sections[0]).long()
+               + (pair >= sections[0] + sections[1]).long())   # [D/2]
+    pos = positions_3d.float().index_select(-1, sec_ids)       # [B, S, D/2]
+    return pos * rope_freqs(d, theta, dev)
+
+
+def rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
+           ) -> torch.Tensor:
+    """Rotate-half of x [..., S, H, D] by angles whose sine and cosine are
+    [..., S, 1, D/2]; the result in ``x``'s dtype."""
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def sin_cos(ang: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., S, D/2] angles -> their sine and cosine as [..., S, 1, D/2]."""
+    return torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: [..., S, H, D]; positions: broadcastable to [..., S].
@@ -122,11 +207,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     Rotate-half on the two halves of D, angles in float32, result cast
     back to ``x``'s dtype.
     """
-    d = x.shape[-1]
-    inv = rope_freqs(d, theta, x.device)                       # [D/2]
-    ang = positions[..., None].float() * inv                   # [..., S, D/2]
-    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
-    x1, x2 = x[..., : d // 2], x[..., d // 2:]
-    y1 = x1 * cos - x2 * sin
-    y2 = x2 * cos + x1 * sin
-    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+    return rotate(x, *sin_cos(rope_angles(positions, x.shape[-1], theta)))
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE of x [B, S, H, D] at positions_3d [B, S, 3]
+    (``mrope_angles``)."""
+    return rotate(x, *sin_cos(mrope_angles(positions_3d, x.shape[-1], theta,
+                                           sections)))

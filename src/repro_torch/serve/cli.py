@@ -5,6 +5,10 @@ Examples::
     # SmolLM-360M at full width on the card, seeded random weights
     python -m repro_torch.serve --full --slots 8 --max-len 512 --rate 16
 
+    # Qwen3-30B-A3B (MoE, 61 GB in bf16) at full width on one 80 GB card
+    python -m repro_torch.serve --arch qwen3-moe-30b-a3b --full --slots 8 \
+        --max-len 512 --rate 4 --requests 16
+
     # smoke-scale model on the CPU
     python -m repro_torch.serve --device cpu --rate 4 --slots 4
 
@@ -26,6 +30,7 @@ import tempfile
 import threading
 
 import repro_torch.obs as obs
+from repro_torch.configs import list_archs
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.serve.handoff import CheckpointWatcher
 from repro_torch.serve.metrics import render_markdown, summarize
@@ -37,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m repro_torch.serve",
         description="continuous-batching serving run (PyTorch / CUDA)",
     )
-    p.add_argument("--arch", default="smollm-360m",
+    p.add_argument("--arch", default="smollm-360m", choices=list_archs(),
                    help="decoder-only arch name (repro_torch.configs)")
     p.add_argument("--rate", type=float, default=4.0,
                    help="mean Poisson arrival rate, requests/second")

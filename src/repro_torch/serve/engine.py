@@ -78,7 +78,8 @@ class _Slot:
 
 
 class ServeEngine:
-    """Fixed-slot continuous batching over a dense decoder stack."""
+    """Fixed-slot continuous batching over any decoder-only arch the port
+    runs (``transformer.check_supported``)."""
 
     def __init__(self, cfg: ServeConfig, *, model_cfg=None,
                  params: dict | None = None, round_idx: int = -1) -> None:
@@ -135,8 +136,8 @@ class ServeEngine:
             return _sample(logits), cache
 
         def insert_fn(cache, slot_cache, slot):
-            for name in ("k", "v"):
-                cache[name][:, slot] = slot_cache[name][:, 0]
+            for name, leaf in cache.items():   # every leaf: batch at axis 1
+                leaf[:, slot] = slot_cache[name][:, 0]
             return cache
 
         # one counted call per steady-state decode step; admission costs

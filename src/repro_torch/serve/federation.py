@@ -2,7 +2,7 @@
 
 Counterpart of ``repro.serve.federation``:
 
-  * ``transformer_model`` — the dense decoder stack as an ``arms.Model``;
+  * ``transformer_model`` — the decoder stack as an ``arms.Model``;
   * ``token_silos`` — synthetic per-hospital next-token corpora (each silo
     draws from its own biased token distribution);
   * ``train_and_publish`` — ``arms.run(...)`` with a
@@ -24,6 +24,7 @@ import torch
 import repro_torch.arms as arms
 from repro_torch.arms.base import Model, Participant
 from repro_torch.arms.clipping import GhostCapability
+from repro_torch.core import ghost as ghost_lib
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.serve.handoff import CheckpointPublisher
@@ -42,7 +43,8 @@ def transformer_model(model_cfg, *, ghost_chunk: int | None = None,
     position of a full-sequence forward, run under ``torch.no_grad()``;
     with ``model_cfg.use_flash`` its causal attention runs the
     ``flash_attention`` kernel on the card.  Dense decoder stacks with
-    untied embeddings also declare the ghost-clipping capability
+    untied embeddings (``core.ghost._supported``; not MoE) also declare
+    the ghost-clipping capability
     (DESIGN.md §12): DP arms then compute their clipped gradient sums
     through ``core.ghost`` (the ``ghost_norm`` kernel on the card), in
     chunks of ``ghost_chunk`` rows (None: the whole silo batch at once),
@@ -63,10 +65,12 @@ def transformer_model(model_cfg, *, ghost_chunk: int | None = None,
         logits, _ = tf.forward(model_cfg, params, {"tokens": x})
         return torch.argmax(logits[:, -1], dim=-1)
 
-    # tied heads make the ghost head term an upper bound, not exact: those
-    # configs stay on the faithful per-example path
-    cap = (None if model_cfg.tie_embeddings
-           else GhostCapability(model_cfg, chunk_size=ghost_chunk))
+    # tied heads make the ghost head term an upper bound, not exact, and
+    # MoE stacks mix examples inside a dispatch: those configs stay on the
+    # faithful per-example path
+    cap = None
+    if ghost_lib._supported(model_cfg) and not model_cfg.tie_embeddings:
+        cap = GhostCapability(model_cfg, chunk_size=ghost_chunk)
     return Model(init_fn, loss_fn, predict_fn, ghost=cap)
 
 

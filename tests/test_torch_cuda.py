@@ -329,3 +329,87 @@ def test_population_at_q1_is_ideal_bit_for_bit_through_ghost_norm(dev):
     for leaves, launches in runs[1:]:
         assert launches == runs[0][1] == 29 * 4 * 2
         assert all(torch.equal(a, b) for a, b in zip(runs[0][0], leaves))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,l,h,kv,d,window", [
+    (8, 512, 16, 16, 256, None),     # Gemma-7B's heads
+    (8, 512, 96, 8, 192, None),      # Nemotron-4-340B's: group 12
+    (2, 300, 16, 16, 256, 64),
+    (3, 1000, 24, 2, 192, None)])
+def test_decode_attention_kernel_at_the_zoo_head_dims(dev, b, l, h, kv, d,
+                                                      window, dtype):
+    """Head dims 192 and 256 (D = 256 takes more than 48 KB of dynamic
+    shared memory): the plain version's values, at rows 0 and L-1 too and
+    around the split plan's chunk edges, and a second launch bit for bit."""
+    c = decode_ops.split_plan(b + 2, l, kv, decode_ops.sm_count(dev))[1]
+    rows = [min(c * (i + 1) - i % 2, l - 1) for i in range(b)] + [0, l - 1]
+    g_ = torch.Generator(device=dev).manual_seed(l + d)
+    n = len(rows)
+    q = (0.5 * torch.randn((n, 1, h, d), generator=g_, device=dev)).to(
+        DTYPES[dtype])
+    k = (0.5 * torch.randn((n, l, kv, d), generator=g_, device=dev)).to(
+        DTYPES[dtype])
+    v = torch.randn((n, l, kv, d), generator=g_, device=dev).to(DTYPES[dtype])
+    index = torch.tensor(rows, dtype=torch.int32, device=dev)
+    out = decode_ops.decode_attention(q, k, v, index, window=window)
+    torch.testing.assert_close(out.float(), decode_attention_plain(
+        q, k, v, index, window=window).float(), **DECODE_TOL[dtype])
+    assert torch.equal(out, decode_ops.decode_attention(q, k, v, index,
+                                                        window=window))
+
+
+def test_moe_decode_steps_repeat_bit_for_bit(dev):
+    """Qwen3-30B-A3B's MoE decode step (a row per dispatch group) and its
+    one-group step repeat bit for bit: the combine sums each token's
+    choices in a fixed order, with no atomics."""
+    cfg = get_smoke_config("qwen3-moe-30b-a3b").replace(
+        use_decode_kernel=True, param_dtype="bfloat16",
+        compute_dtype="bfloat16")
+    params = tf.init(cfg, 0, dev)
+    cache = tf.init_cache(cfg, 4, 32, dev)
+    tokens = torch.tensor([[3], [7], [3], [100]], dtype=torch.int32,
+                          device=dev)
+    positions = torch.tensor([0, 5, 17, 31], dtype=torch.int32, device=dev)
+    for step in (lambda: tf.decode_step_positions(cfg, params, cache, tokens,
+                                                  positions),
+                 lambda: tf.decode_step(cfg, params, cache, tokens, 9)):
+        assert torch.equal(step()[0], step()[0])
+
+
+def test_moe_apply_waits_for_no_host_sync(dev):
+    """The dispatch counts with comparisons, not bincount, and never reads
+    a value back: under ``set_sync_debug_mode("error")`` nothing raises."""
+    from repro_torch.models.moe import moe_apply
+
+    cfg = get_smoke_config("qwen3-moe-30b-a3b")
+    layer = {n: t[0] for n, t in tf.init(cfg, 0, dev)["layers"].items()}
+    x = torch.randn((8, 1, cfg.d_model), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for groups in (8, 1):
+            y, aux = moe_apply(layer, x, cfg, groups=groups)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(aux))
+
+
+def test_faithful_moe_rounds_repeat_bit_for_bit(dev):
+    """Per-example gradients through the MoE dispatch (``torch.func.vmap``):
+    two sigma = 0 DeCaPH rounds give the same parameters bit for bit."""
+    import repro_torch.arms as arms
+    from repro_torch.core.dp import DPConfig
+    from repro_torch.serve.federation import token_silos
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_smoke_config("qwen3-moe-30b-a3b")
+    model = transformer_model(cfg, device=str(dev))
+    assert model.ghost is None
+    silos = token_silos(cfg, hospitals=3, n_per=8, seq_len=8, seed=0)
+    acfg = arms.ArmConfig(rounds=2, batch_size=6, lr=0.05, use_secagg=False,
+                          dp=DPConfig(clip_norm=1.0, noise_multiplier=0.0,
+                                      microbatch_size=4))
+    a, b = (tree_leaves(arms.run("decaph", model, silos, acfg).params)
+            for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

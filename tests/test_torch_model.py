@@ -126,11 +126,13 @@ def test_full_config_param_count():
 
 def test_unported_arch_and_mixer_raise():
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        get_config("gemma-7b")
+        get_config("deepseek-v3-671b")
     cfg = get_smoke_config("smollm-360m")
-    moe = cfg.replace(stack=((2, (LayerSpec("attn", "moe"),)),))
-    with pytest.raises(NotImplementedError):
-        ttf.init(moe, 0, "cpu")
+    mla = cfg.replace(stack=((2, (LayerSpec("mla", "dense"),)),))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ttf.init(mla, 0, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ttf.init(cfg.replace(norm="layernorm"), 0, "cpu")
 
 
 def test_port_init_has_the_converted_layout(models):
