@@ -18,7 +18,9 @@ script exits non-zero, printing no result:
      instantiation, one per (a, g) dtype pair, must have some); the
      decode kernel must have its split and combine kernels at every head
      dim it takes (32, 64, 128, 192, 256) in both dtypes, with no spills
-     at 192 and 256;
+     at 192 and 256; the flash kernel its tensor-core and SIMT kernels at
+     every head dim it takes (32, 64, 128, 192, 256), none of them
+     spilling;
   3. kernel vs plain — each kernel against its plain PyTorch version on
      the card, in bfloat16 and float32, and against a second launch on the
      same inputs bit for bit: ``decode_attention`` at the shapes of
@@ -42,7 +44,9 @@ script exits non-zero, printing no result:
      shapes of ``tests/test_kernels.py`` (MQA, a window, non-causal), L != S,
      the evaluation shape (B=8, S=2048, 15 heads on 5) and the edges of its
      tiles (ragged S and L, windows of 1, one key tile and three, groups of
-     1, 4 and 5, rows that see no key, D = 32 and 128), at atol = rtol =
+     1, 4 and 5, rows that see no key, D = 32 and 128), and at head dims
+     192 and 256 (Gemma-7B's and Nemotron-4-340B's heads, MQA, windows,
+     ragged tiles, rows that see no key), at atol = rtol =
      3e-5 in float32 and atol 1e-3 + rtol 1e-2 in bfloat16 (a few output
      ulps), each dtype through its own kernel (tensor cores for bf16);
   4. serve main path — ``ServeEngine`` serves SmolLM-360M at full width in
@@ -90,7 +94,9 @@ script exits non-zero, printing no result:
      round's device busy time and ``ghost_norm`` share, the wall time of
      one evaluation forward and the flash kernel's share of it, and a
      profiled evaluation forward's device busy time, idle share and top
-     device ops;
+     device ops; ``flash_attention`` also at Gemma-7B's heads (16 on 16 of
+     256) and Nemotron-4-340B's (96 on 8 of 192), B=8 S=L=2048 causal, in
+     both dtypes;
  12. hot swap — a float32 ``ServeEngine`` (SmolLM-360M, untied head, full
      width, 8 slots x 512, the decode kernel, greedy) starts from seeded
      weights at round -1, admits 4 requests and steps; ``poll_watcher``
@@ -213,7 +219,13 @@ script exits non-zero, printing no result:
      output of the first decode step held against its plain version on
      that layer's own q, k and v at phase 3's bf16 limit; then the same
      width in float32 (phase 5's check): greedy tokens with and without
-     the kernel identical, teacher-forced logits within atol 1e-3;
+     the kernel identical, teacher-forced logits within atol 1e-3.
+     Gemma-7B (2 sequences of 2048 tokens) and Nemotron-4-340B (2 layers,
+     1 sequence of 2048) also evaluate with ``use_flash``: the bf16
+     forward's every layer's kernel output held against ``attention_plain``
+     on that layer's own q, k and v at phase 3's bf16 limit, and the
+     float32 forward with the kernel against the plain ``_sdpa`` within
+     atol 1e-3;
  21. DeCaPH on the zoo's families — OLMo-1B at full width (untied head,
      non-parametric LayerNorm) on 4 ``token_silos`` hospitals x 32 x 256
      tokens, batch 16, sigma 1.0, 2 rounds with ghost clipping: ε a fresh
@@ -224,6 +236,25 @@ script exits non-zero, printing no result:
      plain version at rtol 1e-4 and a second launch; Qwen3-30B-A3B's smoke
      config in 2 rounds of faithful DeCaPH (per-example gradients through
      the MoE dispatch) at sigma 0, run twice, bit for bit.
+ 22. the recurrent mixers served — ``rwkv6-3b`` whole at full width in
+     bf16 (2.86 B parameters), behind ``ServeEngine`` with the decode
+     kernel over phase 4's trace (8 slots x 512, 16 requests at 16 q/s):
+     every request served, no ``decode_attention`` launch (no attention
+     layer), one program call per decode step and two per admission; tok/s,
+     TTFT and TPOT p50/p99, a decode step's host and device ms and idle
+     share, the recurrent state per slot; the step twice bit for bit and
+     under ``set_sync_debug_mode("error")``.  Then Jamba-v0.1-52B at full
+     width with 2 of its 4 blocks (16 layers, 26.05 B parameters; cut to
+     what one card holds): the init's peak memory, ``batch_generate`` of 8
+     prompts of 8 tokens x 16 greedy tokens with the kernel and with
+     ``decode_kernel=False`` (2 launches per position, its attention
+     layers', and none), ms per step, each attention layer's kernel output
+     of the first decode step held against the plain version on its own
+     inputs at phase 3's bf16 limit, the step twice bit for bit and with no
+     host sync.  Then in float32, ``rwkv6-3b`` whole and Jamba at 1 block
+     (at capacity factor = experts, so no choice is dropped): greedy tokens
+     with and without the kernel identical, teacher-forced decode logits
+     against ``forward`` within atol 1e-3.
 
 Artifacts and caches of phases 18–19 go into a temp dir under ``build/``.
 The next-to-last line is one JSON object ``{"kernels": [...]}``; the last
@@ -418,7 +449,9 @@ TRAIN_PARAMS = 408_944_640   # SmolLM-360M, untied head (param_count: no norms)
 # edges of the kernels' tiles (64 query rows; 64 keys in bf16, 32 in
 # float32): ragged S and L, windows of 1, of one key tile and across three,
 # groups of 1, 4 and 5, and L < S with a window, where late rows see no key
-# and come out 0 (with L > S every row i sees key i)
+# and come out 0 (with L > S every row i sees key i); then head dims 256
+# and 192 (32-key tiles in bf16, 32 query rows a block in float32) at
+# Gemma-7B's and Nemotron-4-340B's heads and the same kinds of edges
 FLASH_CASES = [
     (1, 128, 128, 4, 2, 32, True, None),
     (2, 128, 128, 4, 4, 64, True, 32),
@@ -437,6 +470,13 @@ FLASH_CASES = [
     (1, 96, 160, 4, 1, 64, False, 50),
     (1, 200, 200, 4, 2, 32, True, 70),
     (2, 200, 200, 8, 2, 128, True, None),
+    (2, 256, 256, 16, 16, 256, True, None),
+    (1, 200, 200, 96, 8, 192, True, None),
+    (1, 130, 130, 8, 1, 256, True, 40),
+    (1, 200, 200, 6, 2, 192, True, 1),
+    (1, 96, 160, 4, 1, 256, False, 50),
+    (1, 200, 72, 6, 2, 192, True, 40),
+    (2, 33, 33, 4, 4, 256, True, None),
 ]
 # |kernel - plain| <= atol + rtol * |plain|, as (atol, rtol).  float32:
 # test_kernels.py's 3e-5.  bfloat16: both sides accumulate in float32 from
@@ -447,6 +487,10 @@ FLASH_CASES = [
 # pass a wrong tile.
 FLASH_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (1e-3, 1e-2)}
 EVAL_SHAPE = dict(b=8, s=2048, h=15, kv=5, d=64)
+# flash_attention at the zoo's head dims, timed beside the evaluation shape:
+# Gemma-7B's and Nemotron-4-340B's attention over 8 sequences of 2048
+ZOO_FLASH_SHAPES = [dict(b=8, s=2048, h=16, kv=16, d=256),
+                    dict(b=8, s=2048, h=96, kv=8, d=192)]
 
 # the evaluation: 4 held-out hospitals x 2 sequences of 2048 tokens (B=8),
 # scored with use_flash at full width
@@ -540,6 +584,18 @@ def build() -> None:
     say(f"resources: decode_attention.cu split + combine kernels for head "
         f"dims {decode_ops.HEAD_DIMS} in float32 and bf16; no spills at "
         f"{NEW_HEAD_DIMS}")
+    flash = {_short(r["kernel"]): r
+             for r in _build.resources("flash_attention")}
+    for d in flash_ops.HEAD_DIMS:
+        rows = [flash.get(f"flash_attention_{kind}_kernel<{d}>")
+                for kind in ("mma", "simt")]
+        if None in rows:
+            raise AssertionError(f"flash_attention.cu has no kernels at "
+                                 f"head_dim {d}")
+        if any(r["spill_stores"] or r["spill_loads"] for r in rows):
+            raise AssertionError(f"flash_attention.cu spills at head_dim {d}")
+    say(f"resources: flash_attention.cu mma (bf16) + simt (float32) kernels "
+        f"for head dims {flash_ops.HEAD_DIMS}; no spills")
     for ta, tg in GHOST_DTYPES:
         blocks = ghost_ops.blocks_per_sm(ta, tg)
         say(f"resources: ghost_norm.cu ghost_norm_tiles a {str(ta)[6:]}, g "
@@ -817,10 +873,18 @@ def flash_vs_plain(dev) -> float:
 # -- 4. the serve main path -----------------------------------------------------------
 
 
+def _n_attention(cfg) -> int:
+    """The stack's attention layers, each one decode_attention launch per
+    position."""
+    return sum(r for r, pattern in cfg.stack for spec in pattern
+               if spec.mixer == "attn")
+
+
 def _check_open_loop(mcfg, requests, result, calls, launches) -> int:
     """Every request served to its budget with tokens in the vocabulary,
-    one program call per decode step and two per admission, and n_layers
-    decode_attention launches per position; returns the decode steps."""
+    one program call per decode step and two per admission, and one
+    decode_attention launch per attention layer and position; returns the
+    decode steps."""
     done = sorted(result.completed, key=lambda r: r.rid)
     if [r.rid for r in done] != [r.rid for r in requests]:
         raise AssertionError(f"{len(done)} of {len(requests)} requests "
@@ -836,9 +900,10 @@ def _check_open_loop(mcfg, requests, result, calls, launches) -> int:
                              f"{result.decode_dispatches}) for {steps} decode "
                              f"steps and {len(done)} admissions")
     prefill_positions = sum(len(r.prompt) for r in requests)
-    if launches != mcfg.n_layers * (steps + prefill_positions):
+    n_attn = _n_attention(mcfg)
+    if launches != n_attn * (steps + prefill_positions):
         raise AssertionError(f"decode_attention launched {launches} times, "
-                             f"expected {mcfg.n_layers} x ({steps} decode "
+                             f"expected {n_attn} x ({steps} decode "
                              f"steps + {prefill_positions} prefill positions)")
     return steps
 
@@ -1201,31 +1266,37 @@ def eval_whole_path(dev) -> None:
                              "disagree over the evaluation forward")
 
 
-def eval_layers_bf16(dev) -> float:
-    """The bf16 evaluation forward with the kernel once, every layer's q, k,
-    v and attention output captured where ``gqa_apply`` calls the kernel,
-    and each layer's output held against ``attention_plain`` on that
-    layer's own inputs at FLASH_TOL[bf16]: the kernel on real activations,
-    not only on random normals.  Returns the largest |kernel - plain|."""
-    mcfg = get_config(ARCH).replace(tie_embeddings=False, use_flash=True)
-    params = tf.init(mcfg, SEED, dev)
-    batch = _eval_batch(mcfg, dev)
-    kernel = attn_lib.flash_attention
+@contextlib.contextmanager
+def capturing_flash():
+    """Keep the inputs and output of every ``flash_attention`` call that
+    ``gqa_apply`` makes; the kernel runs and counts as before.  Yields the
+    list of (q, k, v, kwargs, out)."""
     seen = []
+    kernel = attn_lib.flash_attention
 
     def capture(q, k, v, **kw):
         out = kernel(q, k, v, **kw)
         seen.append((q, k, v, kw, out))
         return out
 
+    with mock.patch.object(attn_lib, "flash_attention", capture):
+        yield seen
+
+
+def bf16_forward_layers(mcfg, params, batch, what: str) -> tuple[int, float]:
+    """One bf16 ``use_flash`` forward, every layer's q, k, v and attention
+    output captured where ``gqa_apply`` calls the kernel, and each layer's
+    output held against ``attention_plain`` on that layer's own inputs at
+    FLASH_TOL[bf16]: the kernel on real activations, not only on random
+    normals.  Returns the launches and the largest |kernel - plain|."""
     before = flash_ops.launches("mma_bf16")
-    with mock.patch.object(attn_lib, "flash_attention", capture), \
-            torch.no_grad():
+    with capturing_flash() as seen, torch.no_grad():
         logits, _ = tf.forward(mcfg, params, batch)
-    if len(seen) != mcfg.n_layers or \
-            flash_ops.launches("mma_bf16") != before + mcfg.n_layers:
-        raise AssertionError(f"{len(seen)} attention calls, expected "
-                             f"{mcfg.n_layers} through the bf16 kernel")
+    launches = flash_ops.launches("mma_bf16") - before
+    if len(seen) != mcfg.n_layers or launches != mcfg.n_layers:
+        raise AssertionError(f"{len(seen)} attention calls, {launches} "
+                             f"launches, expected {mcfg.n_layers} through the "
+                             f"bf16 kernel")
     atol, rtol = FLASH_TOL[torch.bfloat16]
     errs, worst_rel, bad = [], 0.0, []
     for i, (q, k, v, kw, out) in enumerate(seen):
@@ -1239,8 +1310,7 @@ def eval_layers_bf16(dev) -> float:
         del ref, err
     seen.clear()
     ok = not bad and bool(torch.isfinite(logits).all())
-    say(f"eval whole path: {ARCH} untied head, full width bfloat16, B=8 "
-        f"S=2048, use_flash, each layer's kernel output vs attention_plain "
+    say(f"{what}, use_flash, each layer's kernel output vs attention_plain "
         f"on its own q, k, v: max|err| per layer "
         f"{[float(f'{e:.3e}') for e in errs]} (atol {atol:g}, rtol {rtol:g};"
         f" worst err / limit {worst_rel:.3f}) at {mcfg.n_layers - len(bad)} "
@@ -1248,7 +1318,19 @@ def eval_layers_bf16(dev) -> float:
     if not ok:
         raise AssertionError(f"the bf16 flash kernel disagrees with its plain "
                              f"version on real activations at layers {bad}")
-    return max(errs)
+    return launches, max(errs)
+
+
+def eval_layers_bf16(dev) -> float:
+    """Phase 9's bf16 half: the evaluation forward's layers against the
+    plain version (``bf16_forward_layers``).  Returns the largest
+    |kernel - plain|."""
+    mcfg = get_config(ARCH).replace(tie_embeddings=False, use_flash=True)
+    params = tf.init(mcfg, SEED, dev)
+    return bf16_forward_layers(
+        mcfg, params, _eval_batch(mcfg, dev),
+        f"eval whole path: {ARCH} untied head, full width bfloat16, B=8 "
+        f"S=2048")[1]
 
 
 # -- 10. blocked training: _sdpa_blocked inside a ghost round ----------------------
@@ -1530,10 +1612,13 @@ def flash_bound_ms(q, k) -> tuple[float, str]:
         "operations"
 
 
-def time_flash(dev, smi) -> dict:
-    """flash_attention, attention_plain and causal SDPA at the evaluation
-    shape in both dtypes; returns the bfloat16 times for the kernels line."""
-    b, s, h, kv, d = (EVAL_SHAPE[x] for x in ("b", "s", "h", "kv", "d"))
+def time_flash(dev, smi, shape=EVAL_SHAPE) -> dict:
+    """flash_attention, attention_plain and causal SDPA at ``shape`` (the
+    evaluation shape unless given) in both dtypes; returns the bfloat16
+    times (the evaluation shape's go to the kernels line)."""
+    b, s, h, kv, d = (shape[x] for x in ("b", "s", "h", "kv", "d"))
+    where = "32 per evaluation forward" if shape is EVAL_SHAPE else \
+        f"{h} query heads on {kv} of {d}"
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         per_copy = (2 * b * s * h * d + 2 * b * s * kv * d) * (
@@ -1558,9 +1643,10 @@ def time_flash(dev, smi) -> dict:
             f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
             f"{100 * row['bound_ms'] / row['ms']:.1f}% of bound); "
             f"{4 * d * b * h * s * (s + 1) // 2 / 1e9:.1f} GFLOP per call; "
-            f"32 per evaluation forward")
+            f"{where}")
         rows[dtype] = row
         del sets, q, k, v
+        torch.cuda.empty_cache()
     return rows[torch.bfloat16]
 
 
@@ -1737,17 +1823,23 @@ def time_decode_step(engine, smi, position: int = SERVE_POSITION) -> dict:
     with torch.cuda.graph(graph):
         tf.decode_step_positions(*args)
     step_ms = graph_ms(graph, 20)
-    q = torch.randn((slots, 1, mcfg.n_heads, mcfg.head_dim), device=dev
-                    ).to(mcfg.cdtype)
-    layers = [(q, engine.cache["k"][i], engine.cache["v"][i], positions)
-              for i in range(mcfg.n_layers)]     # each layer's cache, cold
-    kernel_ms = device_ms(decode_ops.decode_attention, layers, 64)
+    attn = [c["attn"] for c in tf.layer_caches(mcfg, engine.cache)
+            if "attn" in c]
+    kernel_ms, share = None, "no attention layer"
+    if attn:
+        q = torch.randn((slots, 1, mcfg.n_heads, mcfg.head_dim), device=dev
+                        ).to(mcfg.cdtype)
+        layers = [(q, c["k"], c["v"], positions)
+                  for c in attn]                 # each layer's cache, cold
+        kernel_ms = device_ms(decode_ops.decode_attention, layers, 64)
+        share = (f"decode_attention {kernel_ms:.4f} ms x {len(attn)} layers"
+                 f" = {100 * len(attn) * kernel_ms / step_ms:.1f}% of the "
+                 f"device step")
     say(f"decode step: {mcfg.name} full width bfloat16, {slots} slots at "
         f"position {position} of {engine.cfg.max_len}, medians, on {smi}: "
         f"host {host_ms:.4f} ms, device {step_ms:.4f} ms (CUDA graph replay), "
         f"device idle {100 * (1 - step_ms / host_ms):.1f}% of the host step;"
-        f" decode_attention {kernel_ms:.4f} ms x {mcfg.n_layers} layers = "
-        f"{100 * mcfg.n_layers * kernel_ms / step_ms:.1f}% of the device step")
+        f" {share}")
     return {"host_ms": host_ms, "step_ms": step_ms, "kernel_ms": kernel_ms}
 
 
@@ -1877,11 +1969,11 @@ def hot_swap_path(dev, smi, train, ckpt_dir: str) -> int:
     say(f"hot swap: load-and-swap (poll_watcher: read "
         f"{Path(checkpoint_path(ckpt_dir, last)).stat().st_size:,} bytes, "
         f"decode, copy to the card) {swap_ms:.2f} ms on {smi}")
-    time_handoff(dev, smi, final, checkpoint_path(ckpt_dir, last))
+    time_handoff(dev, smi, mcfg, final, checkpoint_path(ckpt_dir, last))
     return launches
 
 
-def time_handoff(dev, smi, params, path: str) -> None:
+def time_handoff(dev, smi, cfg, params, path: str) -> None:
     """The publish and the load-and-swap in their parts, on the host clock
     (each synchronised): the parameters' copy to the host, the file's
     write from host tensors, the file's read and decode, and the copy of
@@ -1902,7 +1994,7 @@ def time_handoff(dev, smi, params, path: str) -> None:
     timed("write", lambda: save_checkpoint(spare, host, step=0))
     Path(spare).unlink()
     tree, _, _ = timed("read + decode", lambda: load_checkpoint(path))
-    timed("H2D copy", lambda: params_from_tree(tree, dev))
+    timed("H2D copy", lambda: params_from_tree(tree, cfg, dev))
     say(f"handoff parts: {', '.join(f'{k} {v:.2f} ms' for k, v in ms.items())}"
         f" ({Path(path).stat().st_size:,} bytes) on {smi}")
 
@@ -3044,6 +3136,10 @@ ZOO_TRACE = dict(rate=4, n_requests=16)
 ZOO_SERVE = [("gemma-7b", None), ("qwen2-vl-2b", None), ("olmo-1b", None),
              ("nemotron-4-340b", 2)]
 ZOO_PROMPTS, ZOO_PROMPT_LEN, ZOO_GEN = 8, 8, 16
+# the archs that also evaluate with use_flash (head dims 256 and 192): their
+# sequences of 2048 tokens
+ZOO_FLASH = {"gemma-7b": 2, "nemotron-4-340b": 1}
+ZOO_FLASH_LEN = 2048
 
 
 def _free_card() -> int:
@@ -3054,11 +3150,21 @@ def _free_card() -> int:
     return torch.cuda.mem_get_info()[0]
 
 
-def _n_norm_scales(cfg) -> int:
-    # param_count leaves the norms' scales out: two per layer and the
-    # final one under RMSNorm, none under ln_nonparam
-    return (2 * cfg.n_layers + 1) * cfg.d_model if cfg.norm == "rmsnorm" \
+def _uncounted(cfg) -> int:
+    """The parameters the reference's ``param_count`` leaves out: the
+    norms' scales (two per layer and the final one under RMSNorm, none
+    under ln_nonparam); of a Mamba layer's three [DI] vectors (conv_b,
+    dt_bias, d_skip) it counts two; of an RWKV6 layer's decay_w0 [D],
+    bonus_u [NH, HS] and token_mix [5, D], 7 D in all, it counts 2 D."""
+    n = (2 * cfg.n_layers + 1) * cfg.d_model if cfg.norm == "rmsnorm" \
         else 0
+    for repeat, pattern in cfg.stack:
+        for spec in pattern:
+            if spec.mixer == "mamba":
+                n += repeat * cfg.mamba_expand * cfg.d_model
+            elif spec.mixer == "rwkv6":
+                n += repeat * 5 * cfg.d_model
+    return n
 
 
 def _init_counted(cfg, dev, what: str):
@@ -3073,9 +3179,10 @@ def _init_counted(cfg, dev, what: str):
     peak = torch.cuda.max_memory_allocated()
     n = sum(t.numel() for t in tree_leaves(params))
     nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    if n != param_count(cfg) + _n_norm_scales(cfg):
+    if n != param_count(cfg) + _uncounted(cfg):
         raise AssertionError(f"{what}: {n} parameters, param_count "
-                             f"{param_count(cfg)} + norm scales")
+                             f"{param_count(cfg)} + {_uncounted(cfg)} it "
+                             "leaves out")
     say(f"zoo init: {what}, {n:,} parameters ({nbytes / 1e9:.2f} GB), free "
         f"before {free / 1e9:.2f} GB, init {init_s:.2f} s, peak allocated "
         f"{peak / 1e9:.2f} GB")
@@ -3217,10 +3324,39 @@ def _layers_vs_plain(seen: list, what: str) -> float:
     return max(errs)
 
 
-def _zoo_float32_path(cfg, dev, what: str) -> None:
+def _zoo_flash_batch(cfg, dev) -> dict:
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (ZOO_FLASH[cfg.name], ZOO_FLASH_LEN))
+    return {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(dev)}
+
+
+def _zoo_flash_float32(cfg, params, dev, what: str) -> int:
+    """Phase 9's float32 check at a zoo arch: the ``use_flash`` forward (the
+    SIMT kernel, one launch per layer) against the plain ``_sdpa`` within
+    atol 1e-3.  Returns the launches."""
+    batch = _zoo_flash_batch(cfg, dev)
+    before = flash_ops.launches("simt_fp32")
+    with torch.no_grad():
+        kernel, _ = tf.forward(cfg.replace(use_flash=True), params, batch)
+        launches = flash_ops.launches("simt_fp32") - before
+        plain, _ = tf.forward(cfg, params, batch)
+    err = float((kernel - plain).abs().max())
+    ok = launches == cfg.n_layers and err <= 1e-3 and math.isfinite(err)
+    say(f"zoo eval: {what} in float32, use_flash, {ZOO_FLASH[cfg.name]} x "
+        f"{ZOO_FLASH_LEN} tokens, D={cfg.head_dim}: {launches} "
+        f"flash_attention launches, logits max|kernel - plain _sdpa| "
+        f"{err:.3e} (atol 1e-3) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the float32 flash kernel disagrees "
+                             "with the plain attention")
+    return launches
+
+
+def _zoo_float32_path(cfg, dev, what: str) -> int:
     """Phase 5's check at the arch's width in float32: greedy tokens with
     the kernel and with the plain attention equal, teacher-forced logits
-    within atol 1e-3."""
+    within atol 1e-3; for ``ZOO_FLASH``'s archs also the ``use_flash``
+    forward.  Returns the flash kernel's launches."""
     cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
     params = tf.init(cfg, SEED, dev)
     prompt = np.random.default_rng(SEED).integers(
@@ -3254,16 +3390,20 @@ def _zoo_float32_path(cfg, dev, what: str) -> None:
     if not ok:
         raise AssertionError(f"{what}: the decode kernel and the plain "
                              "attention disagree over the float32 path")
+    return (_zoo_flash_float32(cfg, params, dev, what)
+            if cfg.name in ZOO_FLASH else 0)
 
 
-def serve_zoo_dense(dev, smi) -> tuple[int, float]:
+def serve_zoo_dense(dev, smi) -> dict:
     """Phase 20, second part: each dense arch at full width (Nemotron at 2
     layers): greedy ``batch_generate`` in bf16 with the decode kernel and
     with the model's plain attention, the kernel held against its plain
     version on every layer of a decode step's real activations, and the
-    float32 path's tokens and logits; returns the kernel's launches and the
-    largest |kernel - plain| on those activations."""
+    float32 path's tokens and logits; Gemma-7B and Nemotron-4-340B also
+    evaluate with ``use_flash`` in both dtypes.  Returns each kernel's
+    launches and the largest |kernel - plain| on real activations."""
     total, worst = 0, 0.0
+    flash, flash_worst = 0, 0.0
     for arch, layers in ZOO_SERVE:
         cfg = get_config(arch)
         if layers is not None:
@@ -3314,11 +3454,20 @@ def serve_zoo_dense(dev, smi) -> tuple[int, float]:
             f"decode_attention {launches[True] // positions} launches per "
             f"position; {rows_equal} of {ZOO_PROMPTS} rows' tokens equal "
             f"(bf16 near-ties may split the rest)")
+        if arch in ZOO_FLASH:
+            n, err = bf16_forward_layers(
+                cfg.replace(use_flash=True), params,
+                _zoo_flash_batch(cfg, dev),
+                f"zoo eval: {what} full width bfloat16, D={cfg.head_dim}, "
+                f"{ZOO_FLASH[arch]} x {ZOO_FLASH_LEN} tokens")
+            flash += n
+            flash_worst = max(flash_worst, err)
         del params
         _free_card()
-        _zoo_float32_path(cfg, dev, what)
+        flash += _zoo_float32_path(cfg, dev, what)
         _free_card()
-    return total, worst
+    return {"decode_attention": (total, worst),
+            "flash_attention": (flash, flash_worst)}
 
 
 # -- 21. DeCaPH on the zoo's families ------------------------------------------------
@@ -3436,6 +3585,254 @@ def train_qwen3_smoke(dev, smi) -> None:
         raise AssertionError(f"{QWEN3}'s faithful rounds do not repeat")
 
 
+# -- 22. the recurrent mixers served ---------------------------------------------
+
+RWKV = "rwkv6-3b"
+JAMBA = "jamba-v0.1-52b"
+# Jamba's blocks of 8 layers kept: 2 of 4 in bf16 (26.05 B parameters, 52.1
+# GB; 3 would take 77.6 GB and leave no room for the rest), 1 in float32
+# (13.30 B parameters, 53.2 GB)
+JAMBA_BLOCKS, JAMBA_F32_BLOCKS = 2, 1
+RECURRENT_TRACE = dict(rate=16, n_requests=16)   # phase 4's trace
+
+
+def _jamba(blocks: int):
+    cfg = get_config(JAMBA)
+    return cfg.replace(stack=((blocks, cfg.stack[0][1]),),
+                       n_layers=blocks * len(cfg.stack[0][1]))
+
+
+def _step_twice(mcfg, params, cache, tokens, positions) -> bool:
+    """``decode_step_positions`` twice from copies of one cache, the second
+    under ``set_sync_debug_mode("error")`` (anything that waits for the
+    host raises): logits and every cache leaf bit for bit."""
+    caches = [tree_map(torch.clone, cache) for _ in range(2)]
+    first, _ = tf.decode_step_positions(mcfg, params, caches[0], tokens,
+                                        positions)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second, _ = tf.decode_step_positions(mcfg, params, caches[1], tokens,
+                                             positions)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return torch.equal(first, second) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(caches[0]),
+                                          tree_leaves(caches[1])))
+
+
+def serve_rwkv(dev, smi) -> None:
+    """Phase 22, first part: RWKV6-3B whole at full width in bf16, served
+    over phase 4's open-loop trace; no attention layer, so no decode kernel
+    launch."""
+    cfg = get_config(RWKV)
+    params, _, _ = _init_counted(cfg, dev, f"{RWKV} full width bf16, whole")
+    engine = ServeEngine(ServeConfig(
+        arch=RWKV, smoke=False, slots=8, max_len=512, temperature=1.0,
+        seed=SEED, device=str(dev)), model_cfg=cfg, params=params)
+    mcfg = engine.model_cfg
+    batch_generate(engine, np.arange(1, 9, dtype=np.int32)[None], 2)
+    requests = generate_requests(TrafficConfig(
+        vocab_size=cfg.vocab_size, seed=SEED, **RECURRENT_TRACE))
+    prefill_positions = sum(len(r.prompt) for r in requests)
+    decode_ops.reset_launches()
+    reset_jit_dispatches()
+    result = run_open_loop(engine, requests)
+    launches = decode_ops.launches()
+    calls = jit_dispatches()
+    steps = _check_open_loop(mcfg, requests, result, calls, launches)
+    row = summarize(result, slots=8, rate=RECURRENT_TRACE["rate"])
+    # slot 0's share of every layer's state, each leaf [slots, ...]
+    per_slot = {}
+    for c in tf.layer_caches(mcfg, engine.cache):
+        for name, t in c["ssm"].items():
+            per_slot[name] = (per_slot.get(name, 0)
+                              + t[0].numel() * t.element_size())
+    say(f"recurrent serve: {RWKV} full width bf16, 8 slots x 512, "
+        f"{RECURRENT_TRACE['n_requests']} requests @ "
+        f"{RECURRENT_TRACE['rate']} q/s on {smi}: {row['throughput_tok_s']} "
+        f"tok/s, TTFT p50/p99 {row['ttft_p50_ms']}/{row['ttft_p99_ms']} ms, "
+        f"TPOT p50/p99 {row['tpot_p50_ms']}/{row['tpot_p99_ms']} ms; {steps} "
+        f"decode steps + {prefill_positions} prefill positions, {calls} "
+        f"program calls, decode_attention launches {launches}; recurrent "
+        f"state per slot: WKV {per_slot['wkv'] / 1e6:.2f} MB ({cfg.n_layers} "
+        f"layers x {cfg.d_model // cfg.rwkv_head_size} heads x "
+        f"{cfg.rwkv_head_size} x {cfg.rwkv_head_size} x 4 B) + token shift "
+        f"{per_slot['x_prev'] / 1e6:.3f} MB")
+    say("recurrent serve row: " + json.dumps(row, sort_keys=True))
+    time_decode_step(engine, smi)
+    tokens = torch.arange(1, 9, dtype=torch.int32, device=dev)[:, None]
+    positions = torch.tensor([0, 5, 17, 64, 100, 200, 300, 511],
+                             dtype=torch.int32, device=dev)
+    same = _step_twice(mcfg, params, engine.cache, tokens, positions)
+    say(f"recurrent serve: {RWKV} decode step twice from one state, the "
+        f"second under set_sync_debug_mode('error'): no host sync, logits and"
+        f" states {'bit-identical' if same else 'DIFFER'} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{RWKV}'s decode step does not repeat")
+
+
+def serve_jamba(dev, smi) -> tuple[int, float]:
+    """Phase 22, second part: Jamba at full width with JAMBA_BLOCKS of its
+    4 blocks in bf16: ``batch_generate`` with the decode kernel (its
+    attention layers, one launch each per position) and with the plain
+    attention, the kernel against its plain version on every attention
+    layer of a decode step's real activations, a decode step's host and
+    device ms, the step twice bit for bit and with no host sync.  Returns
+    the kernel's launches and the largest |kernel - plain|."""
+    cfg = _jamba(JAMBA_BLOCKS)
+    n_attn = _n_attention(cfg)
+    what = f"{JAMBA} ({JAMBA_BLOCKS} of 4 blocks, {cfg.n_layers} layers)"
+    params, _, _ = _init_counted(cfg, dev, f"{what} full width bf16 "
+                                 f"({active_param_count(cfg):,} active per "
+                                 "token)")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (ZOO_PROMPTS, ZOO_PROMPT_LEN)).astype(np.int32)
+    out, ms, launches = {}, {}, {}
+    positions = 0
+    for kernel in (True, False):
+        engine = ServeEngine(ServeConfig(
+            arch=JAMBA, smoke=False, slots=ZOO_PROMPTS,
+            max_len=ZOO_PROMPT_LEN + ZOO_GEN, temperature=0.0,
+            decode_kernel=kernel, seed=SEED, device=str(dev)),
+            model_cfg=cfg, params=params)
+        # warm-up, a decode step of every slot included
+        batch_generate(engine, prompts[:, :2], 2)
+        steps0 = engine.decode_steps
+        decode_ops.reset_launches()
+        with capturing_decode_step(ZOO_PROMPTS, n_attn) as seen:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[kernel] = batch_generate(engine, prompts, ZOO_GEN)
+            torch.cuda.synchronize()
+            ms[kernel] = (time.perf_counter() - t0) * 1e3
+            launches[kernel] = decode_ops.launches()
+            layer_io = list(seen)
+        positions = engine.decode_steps - steps0 + prompts.size
+        ms[kernel] /= positions
+        if kernel:
+            kernel_io = layer_io
+            step = time_decode_step(engine, smi,
+                                    position=ZOO_PROMPT_LEN + ZOO_GEN // 2)
+        del engine
+    if launches != {True: n_attn * positions, False: 0}:
+        raise AssertionError(f"{JAMBA}: decode_attention launched "
+                             f"{launches}, expected {n_attn} per position "
+                             f"with the kernel, 0 without")
+    worst = _layers_vs_plain(kernel_io, f"{what} bf16")
+    del kernel_io
+    differ = out[True] != out[False]
+    rows_equal = int((~differ).all(axis=1).sum())
+    # each row's first generated token that differs (ZOO_GEN: none)
+    first = [int(np.argmax(row)) if row.any() else ZOO_GEN for row in differ]
+    say(f"recurrent serve: {what} full width bf16, Mamba-1 + attention (D="
+        f"{cfg.head_dim}, {cfg.n_heads} query heads on {cfg.n_kv_heads}) + "
+        f"MoE ({cfg.n_experts} experts top-{cfg.moe_top_k}), batch_generate "
+        f"{ZOO_PROMPTS} prompts x {ZOO_PROMPT_LEN} + {ZOO_GEN} greedy tokens "
+        f"on {smi}: ms per step (prefill positions and decode steps) kernel "
+        f"{ms[True]:.2f}, plain {ms[False]:.2f}; decode step host "
+        f"{step['host_ms']:.2f} ms, device {step['step_ms']:.2f} ms; "
+        f"decode_attention {launches[True] // positions} launches per "
+        f"position; {rows_equal} of {ZOO_PROMPTS} rows' tokens equal, each "
+        f"row's first differing token of {ZOO_GEN} {first} (bf16 near-ties,"
+        f" in MoE routing too, split rows; the layers are held one by one "
+        f"above, the tokens in float32 below)")
+    # where the very first token differs, the prefill's logits (one row,
+    # as an admission runs it) with and without the kernel: their top two
+    # lie closer than the two paths' logits differ
+    ties = []
+    for row in [i for i, f in enumerate(first) if f == 0]:
+        last = {}
+        for kernel in (True, False):
+            c = cfg.replace(use_decode_kernel=kernel)
+            last[kernel] = tf.prefill(
+                c, params, tf.init_cache(c, 1, ZOO_PROMPT_LEN, dev),
+                torch.from_numpy(prompts[row:row + 1]).to(dev))[0].float()
+        top2 = torch.topk(last[False].flatten(), 2).values
+        ties.append((row, float(top2[0] - top2[1]),
+                     float((last[True] - last[False]).abs().max())))
+    if ties:
+        gaps = [(r, float(f"{g:.3e}"), float(f"{d:.3e}")) for r, g, d in ties]
+        say(f"recurrent serve: {what} rows whose first token differs, (row, "
+            f"plain top-2 logit gap, max|kernel - plain| logit): {gaps}")
+    kcfg = cfg.replace(use_decode_kernel=True)
+    cache = tf.init_cache(kcfg, ZOO_PROMPTS, ZOO_PROMPT_LEN + ZOO_GEN, dev)
+    tf.prefill(kcfg, params, cache, torch.from_numpy(prompts).to(dev))
+    tokens = torch.from_numpy(prompts[:, :1]).to(dev)
+    positions = torch.arange(ZOO_PROMPTS, dtype=torch.int32,
+                             device=dev) + ZOO_PROMPT_LEN
+    same = _step_twice(kcfg, params, cache, tokens, positions)
+    say(f"recurrent serve: {what} decode step twice from one cache, the "
+        f"second under set_sync_debug_mode('error'): no host sync, logits and"
+        f" caches {'bit-identical' if same else 'DIFFER'} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{JAMBA}'s decode step does not repeat")
+    del params, cache
+    return launches[True], worst
+
+
+def _recurrent_float32_path(cfg, dev, what: str) -> None:
+    """The width in float32, at a capacity factor of one slot per expert
+    and choice (so neither the forward nor a decode step drops a choice):
+    greedy tokens with the decode kernel and with the plain attention
+    identical, and teacher-forced decode logits against ``forward``'s
+    within atol 1e-3 (the scans against the one-step recurrences)."""
+    cfg = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                      capacity_factor=float(max(cfg.n_experts, 1)))
+    params, _, _ = _init_counted(cfg, dev, f"{what} full width float32")
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, ZOO_PROMPT_LEN)).astype(np.int32)
+    gen = 8
+    tokens = {}
+    for kernel in (True, False):
+        engine = ServeEngine(ServeConfig(
+            arch=cfg.name, slots=1, max_len=ZOO_PROMPT_LEN + gen,
+            temperature=0.0, decode_kernel=kernel, device=str(dev)),
+            model_cfg=cfg, params=params)
+        tokens[kernel] = batch_generate(engine, prompt, gen)[0]
+        del engine
+    seq = torch.from_numpy(np.concatenate(
+        [prompt[0], tokens[True][:-1]]).astype(np.int32)).to(dev)[None]
+    kcfg = cfg.replace(use_decode_kernel=True)
+    cache = tf.init_cache(kcfg, 1, seq.shape[1], dev)
+    with torch.no_grad():
+        steps = torch.cat([tf.decode_step(kcfg, params, cache,
+                                          seq[:, i:i + 1], i)[0].float()
+                           for i in range(seq.shape[1])], dim=1)
+        full, _ = tf.forward(cfg, params, {"tokens": seq})
+    worst = float((steps - full.float()).abs().max())
+    same = np.array_equal(tokens[True], tokens[False])
+    ok = same and worst <= 1e-3 and math.isfinite(worst)
+    say(f"recurrent serve: {what} in float32, {ZOO_PROMPT_LEN}-token prompt "
+        f"+ {gen} greedy tokens, kernel vs plain attention: tokens "
+        f"{'identical' if same else 'DIFFER'}; teacher-forced decode logits "
+        f"vs forward max|diff| {worst:.3e} (atol 1e-3) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: decode and forward disagree over the "
+                             "float32 path")
+    del params, cache
+
+
+def serve_recurrent(dev, smi) -> tuple[int, float]:
+    """Phase 22: RWKV6-3B and Jamba served, then their float32 checks.
+    Returns the decode kernel's launches and largest error of Jamba's
+    run."""
+    _free_card()
+    serve_rwkv(dev, smi)
+    _free_card()
+    _recurrent_float32_path(get_config(RWKV), dev, f"{RWKV} whole")
+    _free_card()
+    launches, worst = serve_jamba(dev, smi)
+    _free_card()
+    _recurrent_float32_path(_jamba(JAMBA_F32_BLOCKS), dev,
+                            f"{JAMBA} ({JAMBA_F32_BLOCKS} of 4 blocks)")
+    _free_card()
+    return launches, worst
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -3484,6 +3881,8 @@ def main() -> int:
     del ghost
     torch.cuda.empty_cache()
     times["flash_attention"] = time_flash(dev, smi)
+    for shape in ZOO_FLASH_SHAPES:
+        time_flash(dev, smi, shape)
     time_eval_forward(dev, smi, times["flash_attention"]["ms"])
     lap(t0, "phase 11")
     torch.cuda.empty_cache()
@@ -3524,9 +3923,9 @@ def main() -> int:
         f"{t19 - t18:.1f} s, phase 19 {time.perf_counter() - t19:.1f} s)")
     t20 = time.perf_counter()
     launches["decode_attention"] += serve_qwen3(dev, smi)
-    dense_launches, dense_err = serve_zoo_dense(dev, smi)
-    launches["decode_attention"] += dense_launches
-    worst["decode_attention"] = max(worst["decode_attention"], dense_err)
+    for name, (n, err) in serve_zoo_dense(dev, smi).items():
+        launches[name] += n
+        worst[name] = max(worst[name], err)
     t21 = time.perf_counter()
     olmo_launches, olmo_err = train_olmo(dev, smi)
     launches["ghost_norm"] += olmo_launches
@@ -3534,6 +3933,11 @@ def main() -> int:
     train_qwen3_smoke(dev, smi)
     say(f"phases 20-21: {time.perf_counter() - t20:.1f} s (phase 20 "
         f"{t21 - t20:.1f} s, phase 21 {time.perf_counter() - t21:.1f} s)")
+    t22 = time.perf_counter()
+    jamba_launches, jamba_err = serve_recurrent(dev, smi)
+    launches["decode_attention"] += jamba_launches
+    worst["decode_attention"] = max(worst["decode_attention"], jamba_err)
+    say(f"phase 22: {time.perf_counter() - t22:.1f} s")
     lines = [{**k, "launches": launches[k["name"]],
               "max_abs_err": worst[k["name"]], **times[k["name"]]}
              for k in KERNELS]

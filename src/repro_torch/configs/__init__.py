@@ -2,10 +2,12 @@
 
 ``get_config(arch_id)`` returns the full-size config and
 ``get_smoke_config(arch_id)`` the reduced same-family variant the CPU
-tests use.  The ported ids are the reference's decoders whose stack is
-one group of ``LayerSpec("attn", "dense" | "moe")``; the reference's
-other architectures (MLA, Mamba, RWKV6, encoder-decoder) are listed in
-ROADMAP.md as still to port, and asking for one raises.
+tests use.  The ported ids are the reference's decoder-only stacks of GQA
+attention, Mamba-1 and RWKV6 mixers with dense or MoE FFNs: the GQA
+decoders, ``rwkv6-3b`` (attention-free) and ``jamba-v0.1-52b`` (Mamba and
+attention interleaved, MoE every other layer).  The reference's other
+architectures (DeepSeek-V3's MLA, Whisper's encoder-decoder) are listed
+in ROADMAP.md as still to port, and asking for one raises.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ ARCHITECTURES = {
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
 }
 
 

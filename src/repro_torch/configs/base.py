@@ -2,10 +2,12 @@
 
 The fields are the reference's, so a config reads the same in both
 packages; ``pdtype``/``cdtype`` return ``torch.dtype``s where the
-reference returns ``jnp.dtype``s.  The port's model code runs stacks of
-one attention layer kind, dense or MoE (``repro_torch.models.transformer``
-raises on the rest), but the schema keeps every field so ``param_count``
-and future slices need no new schema.
+reference returns ``jnp.dtype``s.  The port's model code runs attention,
+Mamba-1 and RWKV6 mixers with dense or MoE FFNs
+(``repro_torch.models.transformer`` raises on the rest), but the schema
+keeps every field, with the reference's defaults, so ``param_count`` and
+``active_param_count`` count every family and future slices need no new
+schema.
 """
 
 from __future__ import annotations

@@ -6,18 +6,21 @@ or as tensors where a checkpoint carries them:
 
   * ``params_from_jax(np_params, cfg)`` takes the reference's params
     pytree with numpy leaves (each layer leaf with its leading layers
-    axis) and returns the port's parameter dict;
+    axis) and returns the port's parameter dict: flat ``layers`` where
+    ``transformer.is_flat(cfg)``, the ``group{gi}/e{j}`` nesting otherwise;
   * ``params_to_numpy(params, cfg)`` is its inverse: the port's parameters
     (or a gradient tree of the same layout) in the reference's pytree, as
     float32 numpy arrays, so tests can compare trained parameters and
     gradients leaf by leaf;
-  * ``params_to_tree(params)`` / ``params_from_tree(tree, device)`` carry
-    the port's parameters to the reference's pytree and back with every
-    leaf's dtype kept (bfloat16 or float32 alike): the layout that
+  * ``params_to_tree(params)`` / ``params_from_tree(tree, cfg, device)``
+    carry the port's parameters to the reference's pytree and back with
+    every leaf's dtype kept (bfloat16 or float32 alike): the layout that
     ``repro-ckpt-v1`` checkpoints hold (``serve.handoff``);
-  * ``cache_to_numpy(cache)`` returns the port's cache in the reference's
-    layout, ``{"group0": {"e0": {"attn": {"k", "v"}}}}`` of shape
-    [n_layers, B, L, KV, hd], so tests can compare caches leaf by leaf;
+  * ``cache_to_numpy(cache, cfg)`` returns the port's cache in the
+    reference's layout (``transformer.cache_tree``), ``{"group0": {"e0":
+    {"attn": {"k", "v"}}}}`` of shape [n_layers, B, L, KV, hd] for a flat
+    attention stack, ``ssm`` states beside or instead of ``attn`` for the
+    recurrent mixers, so tests can compare caches leaf by leaf;
   * ``tabular_params_from_jax(np_params, device)`` /
     ``tabular_params_to_numpy(params)`` carry the tabular models'
     parameters (``models.tabular``) across leaf for leaf, dtypes kept:
@@ -31,18 +34,37 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.layers import pname
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.transformer import cache_tree, check_supported, is_flat
 from repro_torch.tree import tree_map
 
-# port layer key -> (reference sub-dict, reference key); the norms only
-# under RMSNorm (``ln_nonparam`` leaves the reference's norm dicts empty)
-_LAYER_KEYS = {
-    "norm1": ("norm1", pname("scale", "embed")),
-    "wq": ("mixer", pname("wq", "embed", "qheads")),
-    "wk": ("mixer", pname("wk", "embed", "kv_heads")),
-    "wv": ("mixer", pname("wv", "embed", "kv_heads")),
-    "wo": ("mixer", pname("wo", "qheads", "embed")),
-    "norm2": ("norm2", pname("scale", "embed")),
+# every mixer's leaves (no name is shared between mixers), in the
+# reference's ``mixer`` dict: attention, then Mamba-1, then RWKV6
+_MIXER_KEYS = {
+    name: ("mixer", key) for name, key in {
+        "wq": pname("wq", "embed", "qheads"),
+        "wk": pname("wk", "embed", "kv_heads"),
+        "wv": pname("wv", "embed", "kv_heads"),
+        "wo": pname("wo", "qheads", "embed"),
+        "w_in": pname("w_in", "embed", "inner"),
+        "conv_w": pname("conv_w", "conv", "inner"),
+        "conv_b": pname("conv_b", "inner"),
+        "w_bcdt": pname("w_bcdt", "inner", "state"),
+        "w_dt": pname("w_dt", "dc", "inner"),
+        "dt_bias": pname("dt_bias", "inner"),
+        "a_log": pname("a_log", "inner", "state"),
+        "d_skip": pname("d_skip", "inner"),
+        "w_out": pname("w_out", "inner", "embed"),
+        "w_r": pname("w_r", "embed", "qheads"),
+        "w_k": pname("w_k", "embed", "kv_heads"),
+        "w_v": pname("w_v", "embed", "kv_heads"),
+        "w_g": pname("w_g", "embed", "mlp"),
+        "w_o": pname("w_o", "qheads", "embed"),
+        "decay_w0": pname("decay_w0", "embed"),
+        "decay_wa": pname("decay_wa", "embed", "dc"),
+        "decay_wb": pname("decay_wb", "dc", "embed"),
+        "bonus_u": pname("bonus_u", "qheads"),
+        "token_mix": pname("token_mix", "embed"),
+    }.items()
 }
 _DENSE_FFN_KEYS = {
     "w_gate": ("ffn", pname("w_gate", "embed", "mlp")),
@@ -60,6 +82,8 @@ _MOE_FFN_KEYS = {
     "w_shared_down": ("ffn", pname("w_shared_down", "mlp", "embed")),
 }
 _ROUTER = "w_router"
+# leaves the reference keeps in float32 whatever the parameter dtype
+_FLOAT32 = {_ROUTER, "a_log", "d_skip", "decay_w0", "bonus_u", "token_mix"}
 
 
 _EMBED = pname("embed", "vocab", "embed")
@@ -68,22 +92,48 @@ _HEAD = pname("head", "embed", "vocab")
 
 
 def _keys(moe: bool) -> dict:
-    return {**_LAYER_KEYS, **(_MOE_FFN_KEYS if moe else _DENSE_FFN_KEYS)}
+    """Port layer key -> (reference sub-dict, reference key), in
+    ``transformer.init``'s order; the norms only under RMSNorm
+    (``ln_nonparam`` leaves the reference's norm dicts empty)."""
+    return {"norm1": ("norm1", _SCALE), **_MIXER_KEYS,
+            "norm2": ("norm2", _SCALE),
+            **(_MOE_FFN_KEYS if moe else _DENSE_FFN_KEYS)}
 
 
-def _from_layout(tree: dict, leaf, head: bool) -> dict:
+def _layer_from(layer: dict, leaf) -> dict:
+    """One pattern entry's port dict from its reference tree."""
+    keys = _keys(_MOE_FFN_KEYS[_ROUTER][1] in layer["ffn"])
+    return {name: leaf(layer[sub][key], name)
+            for name, (sub, key) in keys.items() if key in layer[sub]}
+
+
+def _layer_to(layer: dict, leaf) -> dict:
+    """One pattern entry's reference tree from its port dict; without norm
+    parameters the reference's empty norm dicts."""
+    keys = _keys(_ROUTER in layer)
+    out: dict = {"norm1": {}, "norm2": {}}
+    for name, t in layer.items():
+        sub, key = keys[name]
+        out.setdefault(sub, {})[key] = leaf(t)
+    return out
+
+
+def _groups(tree: dict) -> list[str]:
+    return [f"group{gi}" for gi in range(len(tree))
+            if f"group{gi}" in tree]
+
+
+def _from_layout(tree: dict, leaf, head: bool, flat: bool) -> dict:
     """The port's parameter dict from a tree in the reference's layout,
-    each leaf through ``leaf(array, port name)``."""
-    layer = tree["group0"]["e0"]
-    moe = _MOE_FFN_KEYS[_ROUTER][1] in layer["ffn"]
-    params = {
-        "embed": leaf(tree[_EMBED], "embed"),
-        "layers": {
-            name: leaf(layer[sub][key], name)
-            for name, (sub, key) in _keys(moe).items()
-            if key in layer[sub]
-        },
-    }
+    each leaf through ``leaf(array, port name)``; ``flat``: the stack is
+    one group of one spec (``transformer.is_flat``)."""
+    params = {"embed": leaf(tree[_EMBED], "embed")}
+    if flat:
+        params["layers"] = _layer_from(tree["group0"]["e0"], leaf)
+    else:
+        for g in _groups(tree):
+            params[g] = {e: _layer_from(layer, leaf)
+                         for e, layer in tree[g].items()}
     if _SCALE in tree["final_norm"]:
         params["final_norm"] = leaf(tree["final_norm"][_SCALE], "final_norm")
     if head:
@@ -91,21 +141,20 @@ def _from_layout(tree: dict, leaf, head: bool) -> dict:
     return params
 
 
-def _to_layout(params: dict, leaf, head: bool) -> dict:
+def _to_layout(params: dict, leaf, head: bool, flat: bool) -> dict:
     """The port's parameters in the reference's pytree, each leaf through
-    ``leaf``; a config without norm parameters gets the reference's empty
-    norm dicts."""
-    keys = _keys(_ROUTER in params["layers"])
-    layer: dict = {"norm1": {}, "norm2": {}}
-    for name, t in params["layers"].items():
-        sub, key = keys[name]
-        layer.setdefault(sub, {})[key] = leaf(t)
+    ``leaf``; ``flat`` as for ``_from_layout``."""
     out = {
         _EMBED: leaf(params["embed"]),
         "final_norm": ({_SCALE: leaf(params["final_norm"])}
                        if "final_norm" in params else {}),
-        "group0": {"e0": layer},
     }
+    if flat:
+        out["group0"] = {"e0": _layer_to(params["layers"], leaf)}
+    else:
+        for g in _groups(params):
+            out[g] = {e: _layer_to(layer, leaf)
+                      for e, layer in params[g].items()}
     if head:
         out[_HEAD] = leaf(params["head"])
     return out
@@ -121,14 +170,15 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 def params_from_jax(np_params: dict, cfg, device=DEFAULT_DEVICE) -> dict:
     """The port's parameters from the reference's (numpy leaves), on
     ``device`` (the card unless the caller asks for the CPU), cast to
-    ``cfg.pdtype`` (a MoE router stays float32, as the reference keeps it)."""
+    ``cfg.pdtype`` (a MoE router and the recurrent mixers' float32 leaves
+    stay float32, as the reference keeps them)."""
     check_supported(cfg)
     device = resolve_device(device)
     return _from_layout(
         np_params,
-        lambda a, name: _tensor(a, torch.float32 if name == _ROUTER
+        lambda a, name: _tensor(a, torch.float32 if name in _FLOAT32
                                 else cfg.pdtype, device),
-        head=not cfg.tie_embeddings)
+        head=not cfg.tie_embeddings, flat=is_flat(cfg))
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -138,29 +188,32 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 def params_to_numpy(params: dict, cfg) -> dict:
     """The port's parameters in the reference's pytree (float32 numpy)."""
     check_supported(cfg)
-    return _to_layout(params, _numpy, head=not cfg.tie_embeddings)
+    return _to_layout(params, _numpy, head=not cfg.tie_embeddings,
+                      flat=is_flat(cfg))
 
 
 def params_to_tree(params: dict) -> dict:
     """The port's parameters in the reference's pytree, each leaf the
     port's own tensor (detached; its device and dtype kept), as a
-    checkpoint stores them."""
-    return _to_layout(params, torch.Tensor.detach, head="head" in params)
+    checkpoint stores them.  A publisher holds no config, so the layout is
+    the one the dict has: flat where it holds ``layers``."""
+    return _to_layout(params, torch.Tensor.detach, head="head" in params,
+                      flat="layers" in params)
 
 
-def params_from_tree(tree: dict, device=DEFAULT_DEVICE) -> dict:
+def params_from_tree(tree: dict, cfg, device=DEFAULT_DEVICE) -> dict:
     """Inverse of ``params_to_tree``: a tree of tensors in the reference's
-    layout (as ``load_checkpoint`` returns it) as the port's parameters on
+    layout (as ``load_checkpoint`` returns it) as ``cfg``'s parameters on
     ``device``, each leaf in its own dtype (never cast to a config's)."""
     device = resolve_device(device)
-    return _from_layout(tree, lambda t, _: t.to(device), head=_HEAD in tree)
+    return _from_layout(tree, lambda t, _: t.to(device), head=_HEAD in tree,
+                        flat=is_flat(cfg))
 
 
-def cache_to_numpy(cache: dict) -> dict:
-    """The cache in the reference's layout, as float32 numpy arrays."""
-    return {"group0": {"e0": {"attn": {
-        name: _numpy(cache[name]) for name in ("k", "v")
-    }}}}
+def cache_to_numpy(cache: dict, cfg) -> dict:
+    """``cfg``'s cache in the reference's layout, as float32 numpy
+    arrays."""
+    return tree_map(_numpy, cache_tree(cfg, cache))
 
 
 def tabular_params_from_jax(np_params: dict, device=DEFAULT_DEVICE) -> dict:

@@ -28,10 +28,12 @@
 //
 // bfloat16: tensor cores (flash_attention_mma_kernel), FlashAttention-2's
 // shape.  One block of 4 warps per (query head, b, 64 query rows); each
-// warp owns 16 query rows, and its Q fragments stay in registers for the
-// whole KV walk.  Tiles of 64 keys of K and V pass through a ring of two
-// shared-memory stages filled by cp.async, rows padded by 16 bytes so the
-// 8 row addresses of each ldmatrix hit 8 distinct 4-bank groups.
+// warp owns 16 query rows.  Q is staged in shared memory with the first
+// key tile and each k-step loads its A fragment by ldmatrix, which keeps
+// D / 4 registers a lane free for O.  Tiles of 64 keys of K and V pass through
+// a ring of two shared-memory stages filled by cp.async, rows padded by 16
+// bytes so the 8 row addresses of each ldmatrix hit 8 distinct 4-bank
+// groups.
 // S = Q K^T is mma.sync m16n8k16 (bf16 in, float32 accumulate) with K
 // fragments from ldmatrix; the online softmax runs on the accumulators in
 // registers (row max and sum over the 4 lanes of a quad by __shfl_xor_sync,
@@ -50,7 +52,11 @@
 // query tiles (the most keys under a causal mask) first, across all heads.
 // A warp skips a tile that is masked for all its rows and masks only the
 // tiles that cross its diagonal, its window's edge or the end of the keys.
-// wgmma and TMA are the next step.
+// wgmma and TMA are the next step.  At head dims 192 and 256
+// (Nemotron-4-340B's and Gemma-7B's) O's accumulators (D / 2 registers)
+// leave no room for a 64-key S tile under the 255-register cap, so the key
+// tiles are 32 wide there (100 KB of shared memory at D = 256, 75 KB at
+// 192).
 //
 // float32: CUDA cores (flash_attention_simt_kernel).  Tensor cores would
 // mean TF32, about 3 decimal digits, which breaks the 3e-5 float32 limit.
@@ -61,10 +67,12 @@
 // holding 32 of its dimensions (as 8 interleaved float4 chunks, so the
 // lanes of a row read neighbouring shared-memory words) of q and of the
 // accumulator in registers; a score is their partial dot products summed
-// with warp shuffles.  Tiles of 32 keys are copied into shared memory by
-// cp.async, double-buffered so the next tile's copy overlaps this tile's
-// compute.  Its floor is the 67 TFLOP/s float32 rate, 0.96 ms at the
-// evaluation shape.
+// with warp shuffles.  Above D = 128 a row has 8 lanes of D/32 dimensions
+// (6 or 8 chunks) and a block 32 rows of one head, and the double-buffered
+// tiles take 96 KB (D = 192) or 128 KB (256) of shared memory.  Tiles of
+// 32 keys are copied into shared memory by cp.async, double-buffered so
+// the next tile's copy overlaps this tile's compute.  Its floor is the 67
+// TFLOP/s float32 rate, 0.96 ms at the evaluation shape.
 //
 // The wrapper guarantees contiguous q, k, v and out with 16-byte aligned
 // base pointers; with D a multiple of 8 every row slice is then 16-byte
@@ -99,10 +107,25 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // -- float32: CUDA cores ------------------------------------------------------
 
-constexpr int kBQ = 64;           // query positions per block
+constexpr int kBQ = 64;           // query positions per block, D <= 128
 constexpr int kTK = 32;           // keys per shared-memory tile
 constexpr int kMaxThreads = 384;  // threads per block, at most (no spills)
 constexpr int kChunks = 8;        // float4 chunks of a row held per lane
+
+// Lanes per query row and query rows per block.  Up to D = 128 a row has
+// D / 32 lanes of 32 dimensions each and a block 64 rows per head.  Above
+// it a row has 8 lanes of D / 32 dimensions each (6 or 8 float4 chunks):
+// D / 32 lanes would be 6 at D = 192, which straddles two warps' shuffles,
+// and 8 at 256 but then 64 rows need 512 threads.  A block then holds 32
+// rows of one head, 256 threads.
+template <int D>
+__host__ __device__ constexpr int simt_tpr() {
+  return D <= 128 ? D / 32 : 8;
+}
+template <int D>
+__host__ __device__ constexpr int simt_bq() {
+  return D <= 128 ? kBQ : 32;
+}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -121,7 +144,11 @@ __global__ void __launch_bounds__(kMaxThreads)
                                 float* __restrict__ out, int S, int L, int H,
                                 int KV, int heads_per_block, int causal,
                                 int window, float scale) {
-  constexpr int TPR = D / 32;         // lanes per query row
+  constexpr int TPR = simt_tpr<D>();  // lanes per query row
+  constexpr int CH = D / (4 * TPR);   // float4 chunks of a row per lane
+  constexpr int BQ = simt_bq<D>();    // query rows per block and head
+  static_assert(32 % TPR == 0 && 4 * TPR * CH == D && CH <= kChunks,
+                "a row's lanes must lie in one warp and cover D");
   constexpr int kRowVecs = D / 4;     // 16-byte copies per key row
   constexpr int kTile = kTK * D;      // elements of one K (or V) tile
   extern __shared__ __align__(16) unsigned char smem[];
@@ -131,17 +158,17 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int n_hchunks = (G + heads_per_block - 1) / heads_per_block;
   const int kvh = blockIdx.y / n_hchunks;
   const int g = (blockIdx.y % n_hchunks) * heads_per_block +
-                threadIdx.x / (TPR * kBQ);
+                threadIdx.x / (TPR * BQ);
   const int b = blockIdx.z;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // latest tiles first
-  const int t = threadIdx.x % TPR;                    // which 32 dimensions
-  const int qpos = q0 + (threadIdx.x / TPR) % kBQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // latest tiles first
+  const int t = threadIdx.x % TPR;                    // which chunks of D
+  const int qpos = q0 + (threadIdx.x / TPR) % BQ;
   const bool active = g < G && qpos < S;
   const size_t qrow = (((size_t)b * S + qpos) * H + kvh * G + g) * D;
 
-  float4 qr[kChunks], acc[kChunks];
+  float4 qr[CH], acc[CH];
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
+  for (int c = 0; c < CH; ++c) {
     const int d0 = 4 * (t + TPR * c);
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (active) x = load4(q + qrow + d0);
@@ -151,7 +178,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   float m = kNegInf, l = 0.f;
 
   // the keys any row of this block may attend: [k_begin, k_end)
-  const int q_last = min(q0 + kBQ, S) - 1;
+  const int q_last = min(q0 + BQ, S) - 1;
   const int k_end = causal ? min(L, q_last + 1) : L;
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   k_begin -= k_begin % kTK;
@@ -188,12 +215,12 @@ __global__ void __launch_bounds__(kMaxThreads)
     const float* vs = ks + kTile;
 
     // scores of this row against the tile's keys: partial dots over this
-    // lane's 32 dimensions, then summed over the row's lanes
+    // lane's dimensions, then summed over the row's lanes
     float s[kTK];
 #pragma unroll
     for (int j = 0; j < kTK; ++j) s[j] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
+    for (int c = 0; c < CH; ++c) {
       const int d0 = 4 * (t + TPR * c);
       const float4 qc = qr[c];
 #pragma unroll
@@ -236,7 +263,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     l = alpha * l + psum;
     m = m_new;
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
+    for (int c = 0; c < CH; ++c) {
       acc[c].x *= alpha;
       acc[c].y *= alpha;
       acc[c].z *= alpha;
@@ -246,7 +273,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int j = 0; j < kTK; ++j) {
       const float p = s[j];
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
+      for (int c = 0; c < CH; ++c) {
         const float4 vc =
             *reinterpret_cast<const float4*>(vs + j * D + 4 * (t + TPR * c));
         acc[c].x = fmaf(p, vc.x, acc[c].x);
@@ -261,7 +288,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   if (active) {
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
+    for (int c = 0; c < CH; ++c) {
       const float4 a = acc[c];
       *reinterpret_cast<float4*>(out + qrow + 4 * (t + TPR * c)) =
           make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
@@ -273,9 +300,11 @@ template <int D>
 int launch_simt(const void* q, const void* k, const void* v, void* out, int B,
                 int S, int L, int H, int KV, int causal, int window,
                 cudaStream_t stream) {
-  constexpr int TPR = D / 32;
+  constexpr int TPR = simt_tpr<D>();
+  constexpr int BQ = simt_bq<D>();
+  static_assert(BQ * TPR <= kMaxThreads, "one head's rows must fit a block");
   const int G = H / KV;
-  const int max_heads = kMaxThreads / (kBQ * TPR);
+  const int max_heads = kMaxThreads / (BQ * TPR);
   const int heads = G < max_heads ? G : max_heads;
   const int n_hchunks = (G + heads - 1) / heads;
   constexpr size_t smem = simt_smem_bytes<D>();
@@ -283,8 +312,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, int B,
       flash_attention_simt_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kBQ - 1) / kBQ, KV * n_hchunks, B);
-  flash_attention_simt_kernel<D><<<grid, heads * kBQ * TPR, smem, stream>>>(
+  const dim3 grid((S + BQ - 1) / BQ, KV * n_hchunks, B);
+  flash_attention_simt_kernel<D><<<grid, heads * BQ * TPR, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, L, H, KV,
       heads, causal, window, 1.0f / sqrtf((float)D));
@@ -296,13 +325,26 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, int B,
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kBM = 16 * kMmaWarps;  // query rows per block, 16 per warp
-constexpr int kBN = 64;              // keys per shared-memory tile
+constexpr int kBN = 64;              // keys per shared-memory tile, D <= 128
 constexpr int kStages = 2;           // cp.async ring
 
-// a shared-memory row of K or V holds D + 8 bf16: padded by 16 bytes
+// A warp's Q fragments would take D / 4 registers a lane beside O's D / 2,
+// so Q is staged in shared memory and its A fragments are loaded per k-step
+// by ldmatrix: at D = 64 that lets ptxas keep 4 blocks an SM (127
+// registers) without the 8-byte spill it made with Q in registers (128).
+// Above D = 128 a 64-key S tile beside O (128 registers at D = 256) would
+// crowd the 255 registers a thread may hold, so the key tiles are 32 wide
+// there (254 registers at D = 256, 0 spilled).
+template <int D>
+__host__ __device__ constexpr int mma_bn() {
+  return D <= 128 ? kBN : 32;
+}
+
+// a shared-memory row of K, V or Q holds D + 8 bf16: padded by 16 bytes
 template <int D>
 constexpr size_t mma_smem_bytes() {
-  return (size_t)kStages * 2 * kBN * (D + 8) * sizeof(__nv_bfloat16);
+  return ((size_t)kStages * 2 * mma_bn<D>() + kBM) * (D + 8) *
+         sizeof(__nv_bfloat16);
 }
 
 // D (16x8, float32) += A (16x16, bf16, row-major) * B (16x8, bf16, col-major)
@@ -372,12 +414,14 @@ __global__ void __launch_bounds__(kMmaThreads)
   constexpr int RS = D + 8;     // padded shared-memory row
   constexpr int KS = D / 16;    // k-steps of S = Q K^T
   constexpr int ND = D / 8;     // n-tiles of O
-  constexpr int NT = kBN / 8;   // n-tiles of S
-  constexpr int kTile = kBN * RS;
-  constexpr int kRowVecs = D / 8;  // 16-byte copies per key row
+  constexpr int BN = mma_bn<D>();  // keys per tile
+  constexpr int NT = BN / 8;    // n-tiles of S
+  constexpr int kTile = BN * RS;
+  constexpr int kRowVecs = D / 8;  // 16-byte copies per key (or query) row
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);
-  // [kStages][K, V][kBN][RS]
+  // [kStages][K, V][BN][RS], then Q's [kBM][RS]
+  __nv_bfloat16* qs = tiles + kStages * 2 * kTile;
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -389,22 +433,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int w1 = min(w0 + 15, S - 1);     // and its last real one
   const int row[2] = {w0 + gq, w0 + gq + 8};
 
-  // Q fragments, straight from device memory into registers (rows past S
-  // are zeros; their outputs are never written)
   const size_t q_row = (size_t)H * D;     // stride between query positions
   const __nv_bfloat16* qb = q + (size_t)b * S * q_row + (size_t)h * D;
-  unsigned qf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row[i & 1];
-      const int c = 16 * ks + 2 * tq + 8 * (i >> 1);
-      qf[ks][i] = r < S ? *reinterpret_cast<const unsigned*>(
-                              qb + (size_t)r * q_row + c)
-                        : 0u;
-    }
-  }
 
   float o[ND][4];
 #pragma unroll
@@ -416,17 +446,17 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int q_last = min(q0 + kBM, S) - 1;
   const int k_end = causal ? min(L, q_last + 1) : L;
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  k_begin -= k_begin % kBN;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBN - 1) / kBN : 0;
+  k_begin -= k_begin % BN;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
 
   const size_t kv_row = (size_t)KV * D;  // stride between key positions
   const __nv_bfloat16* kb = k + (size_t)b * L * kv_row + (size_t)kvh * D;
   const __nv_bfloat16* vb = v + (size_t)b * L * kv_row + (size_t)kvh * D;
   auto copy_tile = [&](int tile, int stage) {
-    const int k0 = k_begin + tile * kBN;
+    const int k0 = k_begin + tile * BN;
     __nv_bfloat16* kd = tiles + stage * 2 * kTile;
     __nv_bfloat16* vd = kd + kTile;
-    for (int e = threadIdx.x; e < kBN * kRowVecs; e += kMmaThreads) {
+    for (int e = threadIdx.x; e < BN * kRowVecs; e += kMmaThreads) {
       const int j = e / kRowVecs, c = (e % kRowVecs) * 8;
       const bool valid = k0 + j < L;  // keys past L: zeros, then masked
       const size_t off = valid ? (size_t)(k0 + j) * kv_row + c : 0;
@@ -436,6 +466,16 @@ __global__ void __launch_bounds__(kMmaThreads)
     cp_async_commit();
   };
 
+  if (n_tiles > 0) {
+    // the block's 64 query rows, in the first tile's commit group (rows
+    // past S: zeros; their outputs are never written)
+    for (int e = threadIdx.x; e < kBM * kRowVecs; e += kMmaThreads) {
+      const int r = e / kRowVecs, c = (e % kRowVecs) * 8;
+      const bool valid = q0 + r < S;
+      const size_t off = valid ? (size_t)(q0 + r) * q_row + c : 0;
+      cp_async16(qs + r * RS + c, qb + off, valid);
+    }
+  }
   if (n_tiles > 0) copy_tile(0, 0);
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it % kStages;
@@ -447,9 +487,9 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     __syncthreads();  // tile `it` is in shared memory for every thread
 
-    const int k0 = k_begin + it * kBN;
+    const int k0 = k_begin + it * BN;
     const bool skip = w0 >= S || (causal && k0 > w1) ||
-                      (window > 0 && k0 + kBN - 1 <= w0 - window);
+                      (window > 0 && k0 + BN - 1 <= w0 - window);
     if (!skip) {
       const __nv_bfloat16* ks_tile = tiles + stage * 2 * kTile;
       const __nv_bfloat16* vs_tile = ks_tile + kTile;
@@ -462,19 +502,24 @@ __global__ void __launch_bounds__(kMmaThreads)
       const int mi = lane >> 3;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
+        // this k-step's A fragment: matrix i of the ldmatrix is rows
+        // 8 (i % 2) .. + 7 of the warp's 16 at dimensions 8 (i / 2) .. + 7
+        unsigned qa[4];
+        ldmatrix_x4(qa, qs + (16 * warp + 8 * (mi & 1) + (lane & 7)) * RS +
+                            16 * ks + 8 * (mi >> 1));
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
           unsigned kf[4];
           ldmatrix_x4(kf, ks_tile + (16 * np + 8 * (mi >> 1) + (lane & 7)) * RS +
                               16 * ks + 8 * (mi & 1));
-          mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
-          mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
+          mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
         }
       }
 
       // scale into log2 units; mask only where the tile crosses this warp's
       // diagonal, its window's edge or the end of the keys
-      const bool need_mask = k0 + kBN > L || (causal && k0 + kBN - 1 > w0) ||
+      const bool need_mask = k0 + BN > L || (causal && k0 + BN - 1 > w0) ||
                              (window > 0 && k0 <= w1 - window);
       unsigned keep = 0xffffffffu;  // bit 4 n + i: s[n][i] is attended
 #pragma unroll
@@ -535,7 +580,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       // 8 (i % 2) .. + 7 of the k-step at dimensions 8 (i / 2) .. + 7 of a
       // pair of n-tiles
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
+      for (int kk = 0; kk < BN / 16; ++kk) {
         unsigned ph[4], pl[4];
         split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
         split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
@@ -612,6 +657,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       case 128:
         return launch_simt<128>(q, k, v, out, B, S, L, H, KV, causal, window,
                                 s);
+      case 192:
+        return launch_simt<192>(q, k, v, out, B, S, L, H, KV, causal, window,
+                                s);
+      case 256:
+        return launch_simt<256>(q, k, v, out, B, S, L, H, KV, causal, window,
+                                s);
     }
   } else if (dtype == 1) {
     switch (D) {
@@ -621,6 +672,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
         return launch_mma<64>(q, k, v, out, B, S, L, H, KV, causal, window, s);
       case 128:
         return launch_mma<128>(q, k, v, out, B, S, L, H, KV, causal, window, s);
+      case 192:
+        return launch_mma<192>(q, k, v, out, B, S, L, H, KV, causal, window, s);
+      case 256:
+        return launch_mma<256>(q, k, v, out, B, S, L, H, KV, causal, window, s);
     }
   }
   return (int)cudaErrorInvalidValue;

@@ -33,7 +33,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_plain
 
 SOURCE = "flash_attention"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel each dtype launches: CUDA cores for float32, tensor cores for
 # bfloat16
@@ -126,8 +126,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the reference, S must be a multiple of min(block_q, S) and L of
     min(block_k, L).  ``block_q`` and ``block_k`` only decide which
     inputs are refused: the kernels' own tiles (64 query rows by 64 keys
-    in bfloat16, by 32 in float32) mask the ragged edges, whatever they
-    are.
+    in bfloat16, 32 keys above head_dim 128; 64 query rows by 32 keys in
+    float32, 32 rows above 128) mask the ragged edges, whatever they are.
     """
     _check(q, k, v, window, block_q, block_k)
     if q.device.type == "cpu":

@@ -1,11 +1,12 @@
 """The decoder stack: init, forward and loss, KV cache and decode.
 
-Counterpart of ``repro.models.transformer`` for stacks of one group whose
-pattern is one ``LayerSpec("attn", "dense" | "moe")``: GQA attention with
-standard RoPE, M-RoPE or none, a dense FFN or a Mixture-of-Experts
-(``models.moe``), and RMSNorm or OLMo's non-parametric LayerNorm.  Any
-other mixer, cross attention, encoder-decoder models, multi-group stacks
-and the parametric ``layernorm`` raise (ROADMAP.md).
+Counterpart of ``repro.models.transformer`` for decoder-only stacks of any
+groups and patterns of ``LayerSpec``s whose mixer is GQA attention
+(standard RoPE, M-RoPE or none), Mamba-1 or RWKV6 (``models.ssm``) and
+whose FFN is dense or a Mixture-of-Experts (``models.moe``), with RMSNorm
+or OLMo's non-parametric LayerNorm.  MLA, MTP, cross attention,
+encoder-decoder models and the parametric ``layernorm`` raise
+(ROADMAP.md).
 
   init(cfg, seed, device)                      -> params
   forward(cfg, params, batch)                  -> (logits [B,S,V], aux)
@@ -19,13 +20,25 @@ and the parametric ``layernorm`` raise (ROADMAP.md).
   prefill(cfg, params, cache, tokens)          -> (last_logits, cache)
 
 Parameters are a plain dict: ``embed`` [V,D], ``final_norm`` [D] (RMSNorm
-only), ``head`` [D,V] when embeddings are untied, and ``layers``, a dict
-of tensors each with a leading layers axis: ``norm1``/``norm2`` (RMSNorm
-only), ``wq`` [n_layers, D, H*hd], ``wk``, ``wv``, ``wo``, then the FFN's
-``w_gate``/``w_up``/``w_down`` — for MoE layers the experts' [n_layers,
-E, ...] and the float32 ``w_router`` [n_layers, D, E].  The forward is a
-Python loop over that axis.  The cache is ``{"k", "v"}`` of shape
-[n_layers, B, L, KV, hd] and is updated in place.
+only), ``head`` [D,V] when embeddings are untied, and the layers.  A
+stack of one group of one ``LayerSpec`` (``is_flat``) keeps them in
+``layers``, a dict of tensors each with a leading layers axis:
+``norm1``/``norm2`` (RMSNorm only), the mixer's — ``wq`` [n_layers, D,
+H*hd], ``wk``, ``wv``, ``wo`` for attention, ``ssm.mamba_init``'s or
+``ssm.rwkv6_init``'s leaves —, then the FFN's ``w_gate``/``w_up``/
+``w_down``, for MoE layers the experts' [n_layers, E, ...] and the
+float32 ``w_router`` [n_layers, D, E].  Other stacks nest them as the
+reference does: ``group{gi}`` / ``e{j}`` (the pattern's j-th spec) / the
+same names, with a leading axis of the group's repeat.  The forward is a
+Python loop over the layers in order.
+
+The cache of a flat stack is its one mixer's state with a leading layers
+axis: ``{"k", "v"}`` of shape [n_layers, B, L, KV, hd] for attention, the
+Mamba-1 or RWKV6 state leaves for a recurrent mixer.  Any other stack's is
+the reference's tree (``cache_tree``), ``group{gi}`` / ``e{j}`` / ``attn``
+({"k", "v"}) or ``ssm`` (the mixer's state), each leaf with a leading
+repeat axis.  Every leaf has the batch at axis 1.  Decoding updates it in
+place.
 
 A batch of a VLM (``arch_type="vlm"``) may carry ``vision_embeds``
 [B, S_v, D], the stubbed vision tower's patch embeddings, which prefix
@@ -37,7 +50,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import gqa_apply, gqa_decode, gqa_init
+from repro_torch.models.attention import (
+    gqa_apply,
+    gqa_decode,
+    gqa_init,
+    gqa_init_cache,
+)
 from repro_torch.models.layers import (
     NORMS,
     apply_norm,
@@ -48,45 +66,64 @@ from repro_torch.models.layers import (
     trunc_normal,
 )
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.ssm import (
+    mamba_apply,
+    mamba_decode,
+    mamba_init,
+    mamba_init_cache,
+    rwkv6_apply,
+    rwkv6_decode,
+    rwkv6_init,
+    rwkv6_init_cache,
+)
+from repro_torch.tree import tree_map
+
+MIXERS = ("attn", "mamba", "rwkv6")
 
 
 def check_supported(cfg) -> None:
     """Raise unless ``cfg`` is a stack the port can run."""
     cfg.validate()
     specs = [spec for _, pattern in cfg.stack for spec in pattern]
-    ok = (len(cfg.stack) == 1 and len(specs) == 1
-          and specs[0].mixer == "attn" and specs[0].ffn in ("dense", "moe")
-          and not specs[0].cross_attn and not cfg.is_encoder_decoder
-          and not cfg.mtp_depth and cfg.norm in NORMS
+    ok = (all(spec.mixer in MIXERS and spec.ffn in ("dense", "moe")
+              and not spec.cross_attn for spec in specs)
+          and not cfg.is_encoder_decoder and not cfg.mtp_depth
+          and cfg.norm in NORMS
           and cfg.rope_type in ("standard", "mrope", "none"))
-    if ok and specs[0].ffn == "moe":
+    if ok and any(spec.ffn == "moe" for spec in specs):
         ok = cfg.n_experts > 0 and 0 < cfg.moe_top_k <= cfg.n_experts
     if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch runs stacks of one attention layer "
-            "kind (dense FFN or MoE) with RMSNorm or non-parametric "
-            "LayerNorm and standard RoPE, M-RoPE or none; other mixers (MLA, "
-            "Mamba, RWKV6), cross attention, encoder-decoder models, "
-            "multi-group stacks, MTP and parametric LayerNorm are still to "
-            "port (ROADMAP.md)"
+            f"{cfg.name}: repro_torch runs decoder stacks of GQA attention, "
+            "Mamba-1 and RWKV6 mixers with dense or MoE FFNs, RMSNorm or "
+            "non-parametric LayerNorm and standard RoPE, M-RoPE or none; "
+            "MLA, MTP, cross attention, encoder-decoder models and "
+            "parametric LayerNorm are still to port (ROADMAP.md)"
         )
 
 
-def is_moe(cfg) -> bool:
-    return cfg.stack[0][1][0].ffn == "moe"
+def is_flat(cfg) -> bool:
+    """Whether the stack is one group of one ``LayerSpec``, whose layers
+    are kept flat: the parameters in ``params["layers"]``, the cache as
+    that spec's mixer state with a leading layers axis."""
+    return len(cfg.stack) == 1 and len(cfg.stack[0][1]) == 1
 
 
-def _layer_init(cfg, g: torch.Generator, out: dict | None = None) -> dict:
+_MIXER_INIT = {"attn": gqa_init, "mamba": mamba_init, "rwkv6": rwkv6_init}
+
+
+def _layer_init(cfg, spec, g: torch.Generator, out: dict | None = None
+                ) -> dict:
     """One layer's parameters, drawn in a fixed order; ``out`` (name ->
     tensor) receives the draws in place (the norms are returned new)."""
     p = {}
     norm = make_norm(cfg.norm, cfg.d_model, cfg.pdtype, g.device)
     if norm is not None:
         p["norm1"] = norm
-    p.update(gqa_init(cfg, cfg.pdtype, g, out))
+    p.update(_MIXER_INIT[spec.mixer](cfg, cfg.pdtype, g, out))
     if norm is not None:
         p["norm2"] = norm.clone()
-    if is_moe(cfg):
+    if spec.ffn == "moe":
         p.update(moe_init(cfg, cfg.pdtype, g, out))
     else:
         p.update(ffn_init(cfg.d_model, cfg.d_ff, cfg.ffn_kind, cfg.pdtype, g,
@@ -94,15 +131,40 @@ def _layer_init(cfg, g: torch.Generator, out: dict | None = None) -> dict:
     return p
 
 
+def _group_init(cfg, repeat: int, pattern, g: torch.Generator
+                ) -> list[dict]:
+    """One group's stacked parameters, a dict per spec of the pattern, in
+    the network's layer order.  Each stack is allocated once, after its
+    first layer gives the shapes, and each of that layer's leaves is freed
+    as soon as its row 0 holds it; every later layer is drawn leaf by leaf
+    straight into its row."""
+    stacks = []
+    for spec in pattern:
+        first = _layer_init(cfg, spec, g)
+        stack = {}
+        for name in list(first):
+            t = first.pop(name)
+            stack[name] = torch.empty((repeat, *t.shape), dtype=t.dtype,
+                                      device=t.device)
+            stack[name][0].copy_(t)
+            del t
+        stacks.append(stack)
+    for r in range(1, repeat):
+        for spec, stack in zip(pattern, stacks):
+            rows = {name: t[r] for name, t in stack.items()}
+            for name, t in _layer_init(cfg, spec, g, rows).items():
+                if t is not rows[name]:     # the norms
+                    rows[name].copy_(t)
+    return stacks
+
+
 def init(cfg, seed: int, device) -> dict:
     """Seeded random parameters on ``device`` (a ``torch.Generator`` there).
 
     Each leaf is drawn in float32 and cast.  The layers' stacks are
-    allocated once, after layer 0 gives their shapes, and every later
-    layer is drawn leaf by leaf straight into its row, so the peak is the
-    model plus one layer's float32 leaf: a list of layers stacked at the
-    end would hold the model twice.  The draws come in the same order
-    either way.
+    allocated once and every later layer is drawn straight into its row
+    (``_group_init``), so the peak is the model plus one layer's float32
+    leaf: a list of layers stacked at the end would hold the model twice.
     """
     check_supported(cfg)
     g = torch.Generator(device=device)
@@ -115,19 +177,12 @@ def init(cfg, seed: int, device) -> dict:
     if not cfg.tie_embeddings:
         params["head"] = trunc_normal((cfg.d_model, cfg.vocab_size),
                                       cfg.pdtype, 0.02, g)
-    first = _layer_init(cfg, g)
-    layers = {name: torch.empty((cfg.n_layers, *t.shape), dtype=t.dtype,
-                                device=t.device)
-              for name, t in first.items()}
-    for name, t in first.items():
-        layers[name][0].copy_(t)
-    del first
-    for i in range(1, cfg.n_layers):
-        rows = {name: t[i] for name, t in layers.items()}
-        for name, t in _layer_init(cfg, g, rows).items():
-            if t is not rows[name]:     # the norms
-                rows[name].copy_(t)
-    params["layers"] = layers
+    for gi, (repeat, pattern) in enumerate(cfg.stack):
+        stacks = _group_init(cfg, repeat, pattern, g)
+        if is_flat(cfg):
+            params["layers"] = stacks[0]
+        else:
+            params[f"group{gi}"] = {f"e{j}": st for j, st in enumerate(stacks)}
     return params
 
 
@@ -141,6 +196,19 @@ def layer_params(stacked: dict) -> list[dict]:
     names = list(stacked)
     return [dict(zip(names, vals))
             for vals in zip(*(stacked[n].unbind(0) for n in names))]
+
+
+def layers_of(cfg, params: dict) -> list[tuple]:
+    """Every layer in the network's order, as (its ``LayerSpec``, its
+    parameter dict), from either layout."""
+    out = []
+    for gi, (repeat, pattern) in enumerate(cfg.stack):
+        stacks = ([params["layers"]] if is_flat(cfg) else
+                  [params[f"group{gi}"][f"e{j}"] for j in range(len(pattern))])
+        rows = [layer_params(st) for st in stacks]
+        for r in range(repeat):
+            out.extend((spec, rows[j][r]) for j, spec in enumerate(pattern))
+    return out
 
 
 def prefix_vision(cfg, x: torch.Tensor, batch: dict) -> torch.Tensor:
@@ -178,9 +246,9 @@ def head_of(cfg, params: dict) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def _ffn(cfg, p: dict, h: torch.Tensor, moe_groups: int | None = None,
+def _ffn(cfg, spec, p: dict, h: torch.Tensor, moe_groups: int | None = None,
          with_aux: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
-    if is_moe(cfg):
+    if spec.ffn == "moe":
         return moe_apply(p, h, cfg, groups=moe_groups, with_aux=with_aux)
     return ffn_apply(p, h, cfg.ffn_kind), None
 
@@ -198,12 +266,18 @@ def forward(cfg, params: dict, batch: dict) -> tuple[torch.Tensor,
     b, s, _ = x.shape
     positions, mrope_positions = positions_of(cfg, batch, b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in layer_params(params["layers"]):
+    for spec, p in layers_of(cfg, params):
         h = apply_norm(cfg.norm, p.get("norm1"), x)
-        x = x + gqa_apply(p, h, positions, cfg, window=cfg.sliding_window,
+        if spec.mixer == "attn":
+            h = gqa_apply(p, h, positions, cfg, window=cfg.sliding_window,
                           mrope_positions=mrope_positions)
+        elif spec.mixer == "mamba":
+            h = mamba_apply(p, h, cfg)
+        else:
+            h = rwkv6_apply(p, h, cfg)
+        x = x + h
         h = apply_norm(cfg.norm, p.get("norm2"), x)
-        h, a = _ffn(cfg, p, h)
+        h, a = _ffn(cfg, spec, p, h)
         x = x + h
         if a is not None:
             aux = aux + a
@@ -248,11 +322,53 @@ def per_example_loss_fn(cfg, params: dict, example: dict) -> torch.Tensor:
     return loss_fn(cfg, params, {k: v[None] for k, v in example.items()})
 
 
+def _state_key(spec) -> str:
+    """The key of a layer's cache in the reference's tree."""
+    return "attn" if spec.mixer == "attn" else "ssm"
+
+
+def _layer_cache(cfg, spec, batch: int, max_len: int, device) -> dict:
+    if spec.mixer == "attn":
+        state = gqa_init_cache(cfg, batch, max_len, cfg.cdtype, device)
+    else:
+        init_state = mamba_init_cache if spec.mixer == "mamba" else \
+            rwkv6_init_cache
+        state = init_state(cfg, batch, cfg.cdtype, device)
+    return {_state_key(spec): state}
+
+
 def init_cache(cfg, batch: int, max_len: int, device) -> dict:
+    """Zeros in the cache's layout (module docstring): K and V in the
+    compute dtype, the recurrent states in float32."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+    tree = {
+        f"group{gi}": {
+            f"e{j}": tree_map(
+                lambda t: t.new_zeros((repeat, *t.shape)),
+                _layer_cache(cfg, spec, batch, max_len, device))
+            for j, spec in enumerate(pattern)}
+        for gi, (repeat, pattern) in enumerate(cfg.stack)}
+    if is_flat(cfg):
+        return tree["group0"]["e0"][_state_key(cfg.stack[0][1][0])]
+    return tree
+
+
+def cache_tree(cfg, cache: dict) -> dict:
+    """The cache in the reference's nested layout, ``group{gi}`` /
+    ``e{j}`` / ``attn`` or ``ssm``, its tensors shared (a flat cache is
+    wrapped, a nested one returned as it is)."""
+    if is_flat(cfg):
+        return {"group0": {"e0": {_state_key(cfg.stack[0][1][0]): cache}}}
+    return cache
+
+
+def layer_caches(cfg, cache: dict) -> list[dict]:
+    """Each layer's cache, in the network's order, as views of ``cache``
+    (``{"attn": {"k", "v"}}`` or ``{"ssm": ...}``)."""
+    tree = cache_tree(cfg, cache)
+    return [tree_map(lambda t, r=r: t[r], tree[f"group{gi}"][f"e{j}"])
+            for gi, (repeat, pattern) in enumerate(cfg.stack)
+            for r in range(repeat) for j in range(len(pattern))]
 
 
 def _decode(cfg, params: dict, cache: dict, tokens: torch.Tensor,
@@ -260,15 +376,18 @@ def _decode(cfg, params: dict, cache: dict, tokens: torch.Tensor,
             ) -> tuple[torch.Tensor, dict]:
     emb = params["embed"]
     x = emb[tokens].to(cfg.cdtype)
-    stacked = params["layers"]
-    for i in range(cfg.n_layers):
-        p = {name: t[i] for name, t in stacked.items()}
+    for (spec, p), c in zip(layers_of(cfg, params), layer_caches(cfg, cache)):
         h = apply_norm(cfg.norm, p.get("norm1"), x)
-        h, _ = gqa_decode(p, h, {"k": cache["k"][i], "v": cache["v"][i]},
-                          positions, cfg, window=cfg.sliding_window)
+        if spec.mixer == "attn":
+            h, _ = gqa_decode(p, h, c["attn"], positions, cfg,
+                              window=cfg.sliding_window)
+        elif spec.mixer == "mamba":
+            h, _ = mamba_decode(p, h, c["ssm"], cfg)
+        else:
+            h, _ = rwkv6_decode(p, h, c["ssm"], cfg)
         x = x + h
         h = apply_norm(cfg.norm, p.get("norm2"), x)
-        x = x + _ffn(cfg, p, h, moe_groups, with_aux=False)[0]
+        x = x + _ffn(cfg, spec, p, h, moe_groups, with_aux=False)[0]
     x = apply_norm(cfg.norm, params.get("final_norm"), x)
     return matmul(x, head_of(cfg, params).to(cfg.cdtype)), cache
 
@@ -306,7 +425,9 @@ def prefill(cfg, params: dict, cache: dict, tokens: torch.Tensor
 
     The reference's ``prefill`` scans its decode step over the prompt on
     purpose, so the port does the same: each position runs the decode
-    kernel with the prompt's batch.  Neither package has a batched
+    kernel with the prompt's batch, and a recurrent mixer's state advances
+    token by token over exactly S positions (right-padding the prompt would
+    run the state over the pad).  Neither package has a batched
     full-sequence prefill.
     """
     b, s = tokens.shape

@@ -7,7 +7,7 @@ per-slot KV-cache lifecycle.
     program call (``transformer.prefill``, decode-stepping every prompt
     position) that also samples the first generated token, and one more
     call (the insert) overwrites the slot's whole cache row with the
-    prefilled one;
+    prefilled one — every leaf, the recurrent mixers' states included;
   * **decode**: one program call per step for the WHOLE batch —
     ``transformer.decode_step_positions`` advances every slot at its own
     position and the next token is sampled on the device, so a steady
@@ -50,6 +50,7 @@ from repro_torch.device import resolve_device
 from repro_torch.instrument import instrumented
 from repro_torch.models import transformer as tf
 from repro_torch.serve.traffic import Request
+from repro_torch.tree import tree_map
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -136,9 +137,13 @@ class ServeEngine:
             return _sample(logits), cache
 
         def insert_fn(cache, slot_cache, slot):
-            for name, leaf in cache.items():   # every leaf: batch at axis 1
-                leaf[:, slot] = slot_cache[name][:, 0]
-            return cache
+            # every leaf of the cache, K and V and recurrent states alike,
+            # has the batch at axis 1: the slot's row is overwritten whole,
+            # so an admission inherits nothing of a freed slot's state
+            def put(leaf, new):
+                leaf[:, slot] = new[:, 0]
+                return leaf
+            return tree_map(put, cache, slot_cache)
 
         # one counted call per steady-state decode step; admission costs
         # two (prefill + slot insert)
@@ -167,7 +172,7 @@ class ServeEngine:
         if got is None:
             return False
         tree, round_idx, _meta = got
-        self.set_params(params_from_tree(tree, self.device), round_idx)
+        self.set_params(params_from_tree(tree, self.model_cfg, self.device), round_idx)
         return True
 
     # -- slot lifecycle -------------------------------------------------------

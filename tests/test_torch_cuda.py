@@ -227,6 +227,16 @@ def test_decode_attention_split_edges_match_plain(dev, l, h, kv, d, kind,
     (1, 96, 160, 4, 1, 64, False, 50),         # non-causal window, ragged
     (1, 200, 200, 4, 2, 32, True, 70),         # D = 32
     (2, 200, 200, 8, 2, 128, True, None),      # D = 128
+    # head dims 192 (Nemotron-4-340B) and 256 (Gemma-7B): Q staged in
+    # shared memory and 32-key tiles in bf16, 8 lanes a row and 32-row
+    # blocks in float32
+    (2, 128, 128, 16, 16, 256, True, None),    # Gemma's heads
+    (1, 160, 160, 24, 2, 192, True, None),     # group 12, ragged tiles
+    (1, 200, 200, 8, 1, 256, True, 40),        # MQA, a window
+    (1, 130, 130, 6, 2, 192, True, 1),         # window 1: the diagonal
+    (1, 96, 160, 4, 1, 256, False, 50),        # non-causal window, L > S
+    (1, 200, 72, 6, 2, 192, True, 40),         # L < S: rows with no key
+    (2, 33, 33, 4, 4, 256, True, None),        # one ragged tile
 ])
 def test_flash_attention_kernel_matches_plain(dev, b, s, l, h, kv, d, causal,
                                               window, dtype):
@@ -285,6 +295,125 @@ def test_use_flash_forward_launches_once_per_layer(dev, dtype):
             plain, _ = tf.forward(cfg.replace(use_flash=False), params,
                                   {"tokens": tokens})
         torch.testing.assert_close(logits, plain, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("arch,h,kv,d", [("gemma-7b", 16, 16, 256),
+                                        ("nemotron-4-340b", 96, 8, 192)])
+def test_use_flash_at_the_zoo_head_dims(dev, arch, h, kv, d, dtype):
+    """``use_flash`` at Gemma-7B's and Nemotron-4-340B's attention heads
+    (their smoke configs at the full configs' heads, 2 layers): one launch
+    of the dtype's kernel per layer, each layer's kernel output within
+    the kernel tolerance of ``attention_plain`` on its own q, k, v, and
+    in float32 the logits of the model's plain ``_sdpa`` within 1e-4."""
+    from unittest import mock
+
+    from repro_torch.models import attention as attn_lib
+
+    cfg = get_smoke_config(arch).replace(
+        n_heads=h, n_kv_heads=kv, head_dim=d, use_flash=True,
+        param_dtype=dtype, compute_dtype=dtype)
+    params = tf.init(cfg, 0, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    seen, kernel = [], attn_lib.flash_attention
+
+    def capture(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        seen.append((q, k, v, kw, out))
+        return out
+
+    flash_ops.reset_launches()
+    with mock.patch.object(attn_lib, "flash_attention", capture), \
+            torch.no_grad():
+        logits, _ = tf.forward(cfg, params, {"tokens": tokens})
+    assert flash_ops.launches(flash_ops.VARIANTS[DTYPES[dtype]]) == \
+        cfg.n_layers == len(seen)
+    atol, rtol = (3e-5, 3e-5) if dtype == "float32" else (1e-3, 1e-2)
+    for q, k, v, kw, out in seen:
+        torch.testing.assert_close(out.float(), attention_plain(
+            q, k, v, **kw).float(), rtol=rtol, atol=atol)
+    assert bool(torch.isfinite(logits).all())
+    if dtype == "float32":
+        with torch.no_grad():
+            plain, _ = tf.forward(cfg.replace(use_flash=False), params,
+                                  {"tokens": tokens})
+        torch.testing.assert_close(logits, plain, rtol=0, atol=1e-4)
+
+
+def test_jamba_decode_step_on_the_card_matches_the_cpu(dev):
+    """Jamba's smoke stack (Mamba-1 + attention through the decode kernel,
+    MoE) in float32: a prefill and a ragged per-row decode step on the card
+    against the same on the CPU, logits and every cache leaf at 1e-4; the
+    step again bit for bit, and under ``set_sync_debug_mode("error")``."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_smoke_config("jamba-v0.1-52b").replace(use_decode_kernel=True)
+    params = tf.init(cfg, 0, "cpu")
+    on_card = tree_map(lambda t: t.to(dev), params)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 5),
+                           generator=torch.Generator().manual_seed(2))
+    tokens = torch.randint(0, cfg.vocab_size, (3, 1),
+                           generator=torch.Generator().manual_seed(3))
+    positions = torch.tensor([5, 2, 9], dtype=torch.int32)
+    out = {}
+    for where, p in (("cpu", params), ("cuda", on_card)):
+        cache = tf.init_cache(cfg, 3, 12, where)
+        first, cache = tf.prefill(cfg, p, cache, prompt.to(where))
+        before = decode_ops.launches()
+        logits, cache = tf.decode_step_positions(
+            cfg, p, cache, tokens.to(where), positions.to(where))
+        if where == "cuda":
+            assert decode_ops.launches() == before + 1   # one attention layer
+        out[where] = {"prefill": first, "step": logits, "cache": cache}
+    for a, b in zip(tree_leaves(out["cpu"]), tree_leaves(out["cuda"])):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4)
+    cache = out["cuda"]["cache"]
+    snapshot = tree_map(torch.clone, cache)
+    tokens, positions = tokens.to(dev), positions.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again, _ = tf.decode_step_positions(cfg, on_card, snapshot, tokens,
+                                            positions)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    twice, _ = tf.decode_step_positions(cfg, on_card, tree_map(
+        torch.clone, cache), tokens, positions)
+    assert torch.equal(again, twice)
+
+
+def test_rwkv6_steps_repeat_bit_for_bit_without_host_sync(dev):
+    """RWKV6's decode step (no attention, so no decode kernel launch) in
+    bf16 twice from one state, bit for bit, and under
+    ``set_sync_debug_mode("error")``."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_smoke_config("rwkv6-3b").replace(
+        use_decode_kernel=True, param_dtype="bfloat16",
+        compute_dtype="bfloat16")
+    params = tf.init(cfg, 0, dev)
+    cache = tf.init_cache(cfg, 4, 16, dev)
+    tf.prefill(cfg, params, cache, torch.arange(1, 13, device=dev).reshape(
+        4, 3))
+    tokens = torch.tensor([[3], [7], [3], [100]], dtype=torch.int32,
+                          device=dev)
+    positions = torch.tensor([3, 3, 3, 3], dtype=torch.int32, device=dev)
+    runs = []
+    before = decode_ops.launches()
+    for _ in range(2):
+        c = tree_map(torch.clone, cache)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runs.append(tf.decode_step_positions(cfg, params, c, tokens,
+                                                 positions))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert decode_ops.launches() == before
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(runs[0][1]),
+                                                 tree_leaves(runs[1][1])))
 
 
 def test_predict_fn_runs_the_kernel_with_grad_mode_on(dev):

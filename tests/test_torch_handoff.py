@@ -149,7 +149,7 @@ def test_watcher_skips_corrupt_then_recovers(tmp_path, caplog):
     tree, round_idx, meta = got
     assert round_idx == 2 and "published_unix" in meta
     # the reference's layout, each leaf in its own dtype
-    back = params_from_tree(tree, "cpu")
+    back = params_from_tree(tree, get_smoke_config(ARCH), "cpu")
     assert all(torch.equal(a, b) and a.dtype == b.dtype
                for a, b in zip(jax.tree_util.tree_leaves(back),
                                jax.tree_util.tree_leaves(params)))

@@ -50,8 +50,8 @@ def _cfgs(models, decode_kernel):
             tcfg.replace(use_decode_kernel=decode_kernel), tparams)
 
 
-def _assert_caches_close(jcache, tcache):
-    ours = cache_to_numpy(tcache)["group0"]["e0"]["attn"]
+def _assert_caches_close(jcache, tcache, tcfg):
+    ours = cache_to_numpy(tcache, tcfg)["group0"]["e0"]["attn"]
     ref = jcache["group0"]["e0"]["attn"]
     for name in ("k", "v"):
         np.testing.assert_allclose(ours[name], np.asarray(ref[name]),
@@ -166,7 +166,7 @@ def test_decode_step_positions_matches_reference(models, decode_kernel):
     assert tlogits.shape == (b, 1, jcfg.vocab_size)
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
                                atol=ATOL_STEP, rtol=0)
-    _assert_caches_close(jcache, tcache)
+    _assert_caches_close(jcache, tcache, tcfg)
 
 
 def test_prefill_matches_reference(models):
@@ -182,4 +182,4 @@ def test_prefill_matches_reference(models):
                                   torch.from_numpy(tokens))
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
                                atol=ATOL_STEP, rtol=0)
-    _assert_caches_close(jcache, tcache)
+    _assert_caches_close(jcache, tcache, tcfg)

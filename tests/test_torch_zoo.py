@@ -107,8 +107,16 @@ def test_configs_and_param_counts_are_the_references(arch):
 
 def test_registry_holds_the_zoo_and_refuses_the_rest():
     assert set(ZOO) < set(ARCHITECTURES)
-    for arch in ("deepseek-v3-671b", "jamba-v0.1-52b", "rwkv6-3b",
-                 "whisper-small"):
+    # the recurrent mixers' archs are ported: their configs are the
+    # reference's and the engine takes them
+    for arch in ("rwkv6-3b", "jamba-v0.1-52b"):
+        assert arch in ARCHITECTURES
+        assert _fields(get_config(arch)) == _fields(jax_config(arch))
+        ttf.check_supported(get_config(arch))
+        engine = tengine.ServeEngine(tengine.ServeConfig(arch=arch,
+                                                         device="cpu"))
+        assert engine.model_cfg.name == arch
+    for arch in ("deepseek-v3-671b", "whisper-small"):
         with pytest.raises(ValueError, match="ROADMAP.md"):
             get_config(arch)
         with pytest.raises(ValueError, match="ROADMAP.md"):
@@ -279,8 +287,8 @@ def test_vlm_stub_matches_reference(zoo, mrope):
 # -- decode step and prefill ---------------------------------------------------
 
 
-def _assert_caches_close(jcache, tcache):
-    ours = cache_to_numpy(tcache)["group0"]["e0"]["attn"]
+def _assert_caches_close(jcache, tcache, tcfg):
+    ours = cache_to_numpy(tcache, tcfg)["group0"]["e0"]["attn"]
     ref = jcache["group0"]["e0"]["attn"]
     for name in ("k", "v"):
         np.testing.assert_allclose(ours[name], np.asarray(ref[name]),
@@ -315,7 +323,7 @@ def test_decode_steps_and_prefill_match_reference(zoo, arch,
         torch.from_numpy(positions))
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                atol=ATOL_STEP, rtol=0)
-    _assert_caches_close(jcache, tcache)
+    _assert_caches_close(jcache, tcache, tcfg)
 
     jlogits, jcache = jtf.decode_step(jcfg, jparams, jcache,
                                       jnp.asarray(tokens), 9)
@@ -323,7 +331,7 @@ def test_decode_steps_and_prefill_match_reference(zoo, arch,
                                      torch.from_numpy(tokens), 9)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                atol=ATOL_STEP, rtol=0)
-    _assert_caches_close(jcache, tcache)
+    _assert_caches_close(jcache, tcache, tcfg)
 
     prompt = rng.integers(0, tcfg.vocab_size, (2, 6)).astype(np.int32)
     jlogits, jcache = jtf.prefill(jcfg, jparams,
@@ -334,7 +342,7 @@ def test_decode_steps_and_prefill_match_reference(zoo, arch,
                                  torch.from_numpy(prompt))
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                atol=ATOL_STEP, rtol=0)
-    _assert_caches_close(jcache, tcache)
+    _assert_caches_close(jcache, tcache, tcfg)
     if capacity_factor == 0.25:   # the drops are real: without them the
         # prefill's last logits move
         wide = ttf.prefill(tcfg.replace(capacity_factor=100.0), tparams,
@@ -386,7 +394,7 @@ def test_published_round_is_the_references_file(zoo, tmp_path, arch):
     jsave(str(tmp_path / "ref.msgpack"), jparams, step=3, metadata=meta)
     assert (tmp_path / "port.msgpack").read_bytes() == \
         (tmp_path / "ref.msgpack").read_bytes()
-    back = params_from_tree(tree, "cpu")
+    back = params_from_tree(tree, get_smoke_config(arch), "cpu")
     assert jax.tree_util.tree_structure(back) == \
         jax.tree_util.tree_structure(tparams)
     assert all(torch.equal(a, b) for a, b in zip(

@@ -11,8 +11,12 @@ calls only the public wrappers, whose signatures every version shares:
   * ``decode_attention`` in bfloat16 at the serving shape (B=8, L=512, 15
     query heads on 5 KV heads of 64) with every row at index 64 (where the
     serve path's positions lie) and at 511, and at L=4096, index 4095;
-  * ``flash_attention`` in bfloat16 at the evaluation shape (B=8, S=L=2048,
-    causal), also its largest |kernel - plain| on one input.
+  * ``flash_attention`` in bfloat16 at B=8, S=L=2048, causal, at the
+    evaluation heads (15 query heads on 5 KV heads of 64), at the same
+    heads of 32 and at OLMo-1B's (16 on 16 of 128), each beside its bound
+    (4 D operations per causal pair at 989 TFLOP/s) and with its largest
+    |kernel - plain| on one input; and the flash kernels' registers,
+    shared memory and spills as ``ptxas -v`` reported them.
 
 Each time is the median over calls that rotate through enough input copies
 that the L2 cache holds none of them, bracketed by CUDA events behind a
@@ -36,6 +40,8 @@ import torch
 L2_BYTES = 50 * 2**20
 DECODE_CASES = [(512, 64), (512, 511), (4096, 4095)]   # (L, index)
 HEADS = dict(h=15, kv=5, d=64)
+FLASH_HEADS = [(15, 5, 64), (15, 5, 32), (16, 16, 128)]   # (H, KV, D)
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 
 
 def device_ms(fn, arg_sets, reps: int) -> float:
@@ -94,25 +100,30 @@ def time_decode(ops, dev) -> list[dict]:
     return out
 
 
-def time_flash(ops, ref, dev) -> dict:
-    b, s, h, kv, d = 8, 2048, HEADS["h"], HEADS["kv"], HEADS["d"]
-    g = torch.Generator(device=dev).manual_seed(s)
-    sets = [(_randn((b, s, h, d), g, dev), _randn((b, s, kv, d), g, dev),
-             _randn((b, s, kv, d), g, dev)) for _ in range(2)]
+def time_flash(ops, ref, dev) -> list[dict]:
+    b, s = 8, 2048
+    out = []
+    for h, kv, d in FLASH_HEADS:
+        g = torch.Generator(device=dev).manual_seed(s + d)
+        sets = [(_randn((b, s, h, d), g, dev), _randn((b, s, kv, d), g, dev),
+                 _randn((b, s, kv, d), g, dev)) for _ in range(2)]
 
-    def call(q, k, v):
-        return ops.flash_attention(q, k, v, causal=True, block_q=s,
-                                   block_k=s)
+        def call(q, k, v):
+            return ops.flash_attention(q, k, v, causal=True, block_q=s,
+                                       block_k=s)
 
-    q, k, v = sets[0]
-    plain = ref.attention_plain(q, k, v, causal=True).float()
-    diff = (call(q, k, v).float() - plain).abs()
-    ms = device_ms(call, sets, 20)
-    return {"kernel": "flash_attention", "S": s, "ms": ms,
-            "max_abs_err": float(diff.max()),
-            "mean_abs_plain": float(plain.abs().mean()),
-            "within_atol_1e-3_rtol_1e-2": bool(
-                torch.all(diff <= 1e-3 + 1e-2 * plain.abs()))}
+        q, k, v = sets[0]
+        plain = ref.attention_plain(q, k, v, causal=True).float()
+        diff = (call(q, k, v).float() - plain).abs()
+        ms = device_ms(call, sets, 20)
+        bound_ms = 4 * d * b * h * s * (s + 1) / 2 / BF16_OPS_PER_S * 1e3
+        out.append({"kernel": "flash_attention", "S": s, "H": h, "KV": kv,
+                    "D": d, "ms": ms, "bound_ms": bound_ms,
+                    "max_abs_err": float(diff.max()),
+                    "mean_abs_plain": float(plain.abs().mean()),
+                    "within_atol_1e-3_rtol_1e-2": bool(
+                        torch.all(diff <= 1e-3 + 1e-2 * plain.abs()))})
+    return out
 
 
 def main() -> int:
@@ -126,6 +137,7 @@ def main() -> int:
         return 1
     root = args.src.resolve()
     sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import _build as build
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
@@ -138,8 +150,11 @@ def main() -> int:
     print(smi)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    rows = time_decode(decode_ops, dev) + [time_flash(flash_ops, flash_ref,
-                                                      dev)]
+    rows = time_decode(decode_ops, dev) + time_flash(flash_ops, flash_ref,
+                                                     dev)
+    rows += [{"ptxas": "flash_attention", **r}
+             for r in build.resources("flash_attention")
+             if "mma" in r["kernel"]]
     label = args.label or root.name
     for r in rows:
         print(f"{label}: " + ", ".join(f"{k}={v}" for k, v in r.items()))
