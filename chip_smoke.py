@@ -255,6 +255,34 @@ script exits non-zero, printing no result:
      (at capacity factor = experts, so no choice is dropped): greedy tokens
      with and without the kernel identical, teacher-forced decode logits
      against ``forward`` within atol 1e-3.
+ 23. the zoo's last two architectures — DeepSeek-V3 at full width with its
+     3 dense layers and 2 of its 58 MoE layers (26.62 B parameters, 53.24
+     GB in bf16; init peak printed), behind ``ServeEngine`` over a seeded
+     open-loop trace (8 slots x 512, 8 requests at 2 q/s, prompts and
+     outputs of 8-16 tokens): every request served, one program call per
+     decode step and two per admission, no ``decode_attention`` launch
+     (MLA's absorbed decode is plain products over the compressed cache);
+     tok/s, TTFT and TPOT, a decode step's host and device ms and idle
+     share beside its bytes (every weight but the embedding) over the HBM
+     rate, the MLA cache per slot; the MoE layer with no host sync; each
+     MLA layer's absorbed decode over a 16-token prefill against
+     ``mla_apply`` on the same inputs within bf16's 3e-2.  In float32 at
+     3 dense + 1 MoE layer (capacity factor 256) teacher-forced
+     ``decode_step`` against ``forward`` below 5e-4; with ``mtp_depth=1``
+     (3 dense + 1 MoE layer and the MTP block, bf16) ``loss_fn`` on 2 x
+     256 tokens finite and above the loss without MTP, with its wall.
+     Then Whisper-small whole on seeded stub frames [8, 1500, 768]: the
+     ``use_flash`` forward at decoder length 448 (12 ``flash_attention``
+     launches, none for the non-causal encoder; bf16 each decoder layer
+     against ``attention_plain`` on its own inputs; float32 logits within
+     1e-4 of the plain forward), ``_encode`` once with each layer's
+     ``cross_kv_cache`` written into the cache, a prefill of 8 tokens and
+     16 greedy tokens through ``decode_step_positions`` with the kernel
+     (12 launches a position, the first decode step's layers against the
+     plain version in bf16, host and device ms a step), in float32 the
+     same tokens without the kernel and decode against forward below
+     5e-4; ``ServeEngine`` refusing the arch.  Phase 3 holds both kernels
+     at Whisper's group 1, D 64 and phase 11 times them there.
 
 Artifacts and caches of phases 18–19 go into a temp dir under ``build/``.
 The next-to-last line is one JSON object ``{"kernels": [...]}``; the last
@@ -399,12 +427,18 @@ KERNEL_CASES = [
     (8, 512, 16, 16, 256, None, None),
     (8, 512, 96, 8, 192, None, None),
     (2, 300, 16, 16, 256, 150, 64),
+    # Whisper-small's decoder (phase 23): group 1, 12 heads of 64, over the
+    # 8 rows x 24 of its greedy decode and over 8 slots x 512
+    (8, 24, 12, 12, 64, None, None),
+    (8, 512, 12, 12, 64, None, None),
 ]
 # decode_attention at the zoo's new head dims, timed beside the main shape:
 # Gemma-7B's and Nemotron-4-340B's attention at 8 slots x 512
 NEW_HEAD_DIMS = (192, 256)    # the decode kernel's, added for the zoo
 ZOO_DECODE_SHAPES = [dict(b=8, l=512, h=16, kv=16, d=256),
                      dict(b=8, l=512, h=96, kv=8, d=192)]
+# Whisper-small's decoder heads (group 1, D 64) at 8 slots x 512
+WHISPER_DECODE_SHAPE = dict(b=8, l=512, h=12, kv=12, d=64)
 
 # ghost_norm (b, s, d_in, d_out): the shapes of tests/test_kernels.py, then
 # the training shapes — B=16 rows of S=256 tokens through SmolLM-360M's dense
@@ -477,6 +511,11 @@ FLASH_CASES = [
     (1, 96, 160, 4, 1, 256, False, 50),
     (1, 200, 72, 6, 2, 192, True, 40),
     (2, 33, 33, 4, 4, 256, True, None),
+    # Whisper-small's decoder under use_flash (phase 23): group 1, 12 heads
+    # of 64 at 448 tokens (7 query tiles, the kernel's only blocks), and a
+    # ragged length
+    (8, 448, 448, 12, 12, 64, True, None),
+    (2, 100, 100, 12, 12, 64, True, None),
 ]
 # |kernel - plain| <= atol + rtol * |plain|, as (atol, rtol).  float32:
 # test_kernels.py's 3e-5.  bfloat16: both sides accumulate in float32 from
@@ -491,6 +530,8 @@ EVAL_SHAPE = dict(b=8, s=2048, h=15, kv=5, d=64)
 # Gemma-7B's and Nemotron-4-340B's attention over 8 sequences of 2048
 ZOO_FLASH_SHAPES = [dict(b=8, s=2048, h=16, kv=16, d=256),
                     dict(b=8, s=2048, h=96, kv=8, d=192)]
+# Whisper-small's decoder forward: 8 sequences of 448, group 1, D 64
+WHISPER_FLASH_SHAPE = dict(b=8, s=448, h=12, kv=12, d=64)
 
 # the evaluation: 4 held-out hospitals x 2 sequences of 2048 tokens (B=8),
 # scored with use_flash at full width
@@ -1270,13 +1311,16 @@ def eval_whole_path(dev) -> None:
 def capturing_flash():
     """Keep the inputs and output of every ``flash_attention`` call that
     ``gqa_apply`` makes; the kernel runs and counts as before.  Yields the
-    list of (q, k, v, kwargs, out)."""
+    list of (q, k, v, the mask's kwargs, out)."""
     seen = []
     kernel = attn_lib.flash_attention
 
     def capture(q, k, v, **kw):
         out = kernel(q, k, v, **kw)
-        seen.append((q, k, v, kw, out))
+        # the mask's arguments (not the block sizes, which only the
+        # kernel's contract check reads)
+        seen.append((q, k, v, {n: kw[n] for n in ("causal", "window")
+                               if n in kw}, out))
         return out
 
     with mock.patch.object(attn_lib, "flash_attention", capture):
@@ -1632,7 +1676,11 @@ def time_flash(dev, smi, shape=EVAL_SHAPE) -> dict:
         if not lib_err <= TOL[dtype]:
             raise AssertionError(f"library call disagrees with the plain "
                                  f"version by {lib_err:.3e}")
-        row = {"ms": device_ms(flash_ops.flash_attention, sets, 20),
+        # whole-sequence blocks, as gqa_apply calls it (S = 448 is not a
+        # multiple of the reference's 128-row block)
+        kernel = functools.partial(flash_ops.flash_attention, block_q=s,
+                                   block_k=s)
+        row = {"ms": device_ms(kernel, sets, 20),
                "plain_ms": device_ms(attention_plain, sets, 6),
                "library_ms": device_ms(_library_flash, sets, 20)}
         row["bound_ms"], row["bound_by"] = flash_bound_ms(q, k)
@@ -1798,15 +1846,25 @@ def profile_round(dev, smi, train, ghost) -> None:
 
 
 def time_decode_step(engine, smi, position: int = SERVE_POSITION) -> dict:
-    """One full-width decode step of every slot at ``position``: its time on
-    the host clock (call + synchronise), its time on the device (the same
-    step captured in a CUDA graph and replayed, so the host's per-op cost
-    is out of the way; a capture also fails if the step syncs to the host),
-    and the decode kernel's share of the device time."""
-    mcfg, dev, slots = engine.model_cfg, engine.device, engine.cfg.slots
+    """``time_step`` of an engine's model, parameters and cache."""
+    return time_step(engine.model_cfg, engine.params, engine.cache, smi,
+                     position, engine.cfg.max_len)
+
+
+def time_step(mcfg, params, cache, smi, position: int, max_len: int
+              ) -> dict:
+    """One full-width decode step of every slot of ``cache`` at
+    ``position``: its time on the host clock (call + synchronise), its
+    time on the device (the same step captured in a CUDA graph and
+    replayed, so the host's per-op cost is out of the way; a capture also
+    fails if the step syncs to the host), and the decode kernel's share of
+    the device time."""
+    caches = tf.layer_caches(mcfg, cache)
+    slots = tree_leaves(caches[0])[0].shape[0]
+    dev = tree_leaves(caches[0])[0].device
     tokens = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
     positions = torch.full((slots,), position, dtype=torch.int32, device=dev)
-    args = (mcfg, engine.params, engine.cache, tokens, positions)
+    args = (mcfg, params, cache, tokens, positions)
     host = []
     for _ in range(20):
         t0 = time.perf_counter()
@@ -1823,10 +1881,11 @@ def time_decode_step(engine, smi, position: int = SERVE_POSITION) -> dict:
     with torch.cuda.graph(graph):
         tf.decode_step_positions(*args)
     step_ms = graph_ms(graph, 20)
-    attn = [c["attn"] for c in tf.layer_caches(mcfg, engine.cache)
-            if "attn" in c]
-    kernel_ms, share = None, "no attention layer"
-    if attn:
+    # the layers whose attention runs the kernel (GQA's K and V; MLA's
+    # compressed cache has none)
+    attn = [c["attn"] for c in caches if "k" in c.get("attn", {})]
+    kernel_ms, share = None, "no decode_attention layer"
+    if attn and mcfg.use_decode_kernel:
         q = torch.randn((slots, 1, mcfg.n_heads, mcfg.head_dim), device=dev
                         ).to(mcfg.cdtype)
         layers = [(q, c["k"], c["v"], positions)
@@ -1835,11 +1894,12 @@ def time_decode_step(engine, smi, position: int = SERVE_POSITION) -> dict:
         share = (f"decode_attention {kernel_ms:.4f} ms x {len(attn)} layers"
                  f" = {100 * len(attn) * kernel_ms / step_ms:.1f}% of the "
                  f"device step")
-    say(f"decode step: {mcfg.name} full width bfloat16, {slots} slots at "
-        f"position {position} of {engine.cfg.max_len}, medians, on {smi}: "
-        f"host {host_ms:.4f} ms, device {step_ms:.4f} ms (CUDA graph replay), "
-        f"device idle {100 * (1 - step_ms / host_ms):.1f}% of the host step;"
-        f" {share}")
+    del graph
+    say(f"decode step: {mcfg.name} full width {str(mcfg.cdtype)[6:]}, "
+        f"{slots} slots at position {position} of {max_len}, medians, on "
+        f"{smi}: host {host_ms:.4f} ms, device {step_ms:.4f} ms (CUDA graph "
+        f"replay), device idle {100 * (1 - step_ms / host_ms):.1f}% of the "
+        f"host step; {share}")
     return {"host_ms": host_ms, "step_ms": step_ms, "kernel_ms": kernel_ms}
 
 
@@ -3152,19 +3212,30 @@ def _free_card() -> int:
 
 def _uncounted(cfg) -> int:
     """The parameters the reference's ``param_count`` leaves out: the
-    norms' scales (two per layer and the final one under RMSNorm, none
-    under ln_nonparam); of a Mamba layer's three [DI] vectors (conv_b,
-    dt_bias, d_skip) it counts two; of an RWKV6 layer's decay_w0 [D],
-    bonus_u [NH, HS] and token_mix [5, D], 7 D in all, it counts 2 D."""
-    n = (2 * cfg.n_layers + 1) * cfg.d_model if cfg.norm == "rmsnorm" \
-        else 0
+    norms' parameters (a scale under RMSNorm, a scale and a bias under
+    LayerNorm, none under ln_nonparam: two per layer, a third in a
+    cross-attention layer, two per encoder layer, the final norm and the
+    encoder's); MLA's two latent norms' scales; of a Mamba layer's three
+    [DI] vectors (conv_b, dt_bias, d_skip) it counts two; of an RWKV6
+    layer's decay_w0 [D], bonus_u [NH, HS] and token_mix [5, D], 7 D in
+    all, it counts 2 D.  (The MTP subtree, which it also leaves out, is
+    counted apart.)"""
+    per_norm = {"rmsnorm": 1, "layernorm": 2, "ln_nonparam": 0}[cfg.norm] \
+        * cfg.d_model
+    norms = 2 * cfg.n_layers + 1
+    if cfg.is_encoder_decoder:
+        norms += 2 * cfg.encoder_layers + 1
+    n = 0
     for repeat, pattern in cfg.stack:
         for spec in pattern:
+            norms += repeat * spec.cross_attn
             if spec.mixer == "mamba":
                 n += repeat * cfg.mamba_expand * cfg.d_model
             elif spec.mixer == "rwkv6":
                 n += repeat * 5 * cfg.d_model
-    return n
+            elif spec.mixer == "mla":
+                n += repeat * (cfg.q_lora_rank + cfg.kv_lora_rank)
+    return n + norms * per_norm
 
 
 def _init_counted(cfg, dev, what: str):
@@ -3179,13 +3250,15 @@ def _init_counted(cfg, dev, what: str):
     peak = torch.cuda.max_memory_allocated()
     n = sum(t.numel() for t in tree_leaves(params))
     nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    if n != param_count(cfg) + _uncounted(cfg):
-        raise AssertionError(f"{what}: {n} parameters, param_count "
+    mtp = sum(t.numel() for t in tree_leaves(params.get("mtp", {})))
+    if n - mtp != param_count(cfg) + _uncounted(cfg):
+        raise AssertionError(f"{what}: {n - mtp} parameters, param_count "
                              f"{param_count(cfg)} + {_uncounted(cfg)} it "
                              "leaves out")
-    say(f"zoo init: {what}, {n:,} parameters ({nbytes / 1e9:.2f} GB), free "
-        f"before {free / 1e9:.2f} GB, init {init_s:.2f} s, peak allocated "
-        f"{peak / 1e9:.2f} GB")
+    say(f"zoo init: {what}, {n:,} parameters"
+        f"{f' ({mtp:,} of them MTP)' if mtp else ''} ({nbytes / 1e9:.2f} "
+        f"GB), free before {free / 1e9:.2f} GB, init {init_s:.2f} s, peak "
+        f"allocated {peak / 1e9:.2f} GB")
     return params, free, peak
 
 
@@ -3195,7 +3268,8 @@ def _moe_without_host_sync(engine, params) -> None:
     raises."""
     mcfg, dev, slots = engine.model_cfg, engine.device, engine.cfg.slots
     x = torch.randn((slots, 1, mcfg.d_model), device=dev).to(mcfg.cdtype)
-    layer = {name: t[0] for name, t in params["layers"].items()}
+    layer = next(p for spec, p in tf.layers_of(mcfg, params)
+                 if spec.ffn == "moe")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -3281,17 +3355,22 @@ def serve_qwen3(dev, smi) -> int:
 
 
 @contextlib.contextmanager
-def capturing_decode_step(slots: int, n_layers: int):
+def capturing_decode_step(slots: int, n_layers: int, skip: int = 0):
     """Keep the inputs and output of the first ``n_layers`` decode kernel
     calls with ``slots`` rows (one batched decode step; prefills have one
-    row), the caches cloned; the kernel runs and counts as before.  Yields
-    the list of (q, k, v, index, window, out)."""
+    row) after the first ``skip`` such calls, the caches cloned; the
+    kernel runs and counts as before.  Yields the list of (q, k, v, index,
+    window, out)."""
     seen = []
     real = attn_lib.decode_attention
+    passed = [0]
 
     def capture(q, k, v, index, *, window=None):
         out = real(q, k, v, index, window=window)
-        if q.shape[0] == slots and len(seen) < n_layers:
+        if q.shape[0] == slots:
+            passed[0] += 1
+        if q.shape[0] == slots and skip < passed[0] and \
+                len(seen) < n_layers:
             seen.append((q.clone(), k.clone(), v.clone(), index.clone(),
                          window, out.clone()))
         return out
@@ -3833,6 +3912,383 @@ def serve_recurrent(dev, smi) -> tuple[int, float]:
     return launches, worst
 
 
+# -- 23. the zoo's last two architectures: DeepSeek-V3, Whisper-small ----------
+
+DEEPSEEK = "deepseek-v3-671b"
+WHISPER = "whisper-small"
+# DeepSeek-V3's MoE layers kept beside its 3 dense ones: 2 in bf16 (26.62 B
+# parameters, 53.24 GB), 1 in float32 (15.11 B, 60.44 GB) and for MTP (its
+# block is one more MoE layer)
+DEEPSEEK_MOE, DEEPSEEK_F32_MOE = 2, 1
+# the open-loop trace: 8 requests at 2 q/s, prompts and outputs of 8-16
+# tokens (cut: the trace's length; a prefill position reads every expert)
+DEEPSEEK_TRACE = dict(rate=2, n_requests=8, prompt_lens=(8, 16),
+                      gen_lens=(8, 16))
+DEEPSEEK_F32_POSITIONS = 16
+DEEPSEEK_F32_GAP = 5e-4      # tests/test_models_smoke.py's decode bar
+MTP_BATCH = (2, 256)
+# Whisper-small whole: 8 sets of stub frames [1500, 768], the decoder at
+# 448 tokens for the forwards; 8 prompt tokens and 16 greedy ones decoded
+WHISPER_B, WHISPER_LEN, WHISPER_PROMPT, WHISPER_GEN = 8, 448, 8, 16
+WHISPER_F32_LOGITS = 1e-4    # use_flash against the plain forward
+
+
+def _deepseek(moe_layers: int, **kw):
+    cfg = get_config(DEEPSEEK)
+    return cfg.replace(n_layers=3 + moe_layers, stack=(
+        cfg.stack[0], (moe_layers, cfg.stack[1][1])), **kw)
+
+
+@contextlib.contextmanager
+def capturing_mla_decode():
+    """Keep every ``mla_decode`` call's layer parameters, input and output
+    (the model runs as before).  Yields the list of (p, x, index, y)."""
+    seen = []
+    real = tf.mla_decode
+
+    def capture(p, x, cache, index, cfg, *, window=None):
+        y, cache = real(p, x, cache, index, cfg, window=window)
+        seen.append((p, x.clone(), index.clone(), y.clone()))
+        return y, cache
+
+    with mock.patch.object(tf, "mla_decode", capture):
+        yield seen
+
+
+def _mla_layers_vs_apply(cfg, params, dev, smi, what: str) -> None:
+    """A 16-token prefill of 2 rows in bf16, each MLA layer's absorbed
+    decode outputs over the 16 positions held against ``mla_apply`` on
+    the same layer inputs, within test_kernels.py's bf16 3e-2 (the two
+    orders round different bf16 intermediates: q through W_uk against c
+    through W_uk, the latent context against per-head V)."""
+    b, s = 2, 16
+    n = cfg.n_layers
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)
+    with capturing_mla_decode() as seen, torch.no_grad():
+        tf.prefill(cfg, params, tf.init_cache(cfg, b, s, dev), prompt)
+    if len(seen) != n * s:
+        raise AssertionError(f"{len(seen)} mla_decode calls, expected "
+                             f"{n} layers x {s} positions")
+    positions = torch.arange(s, device=dev)[None].expand(b, s)
+    errs = []
+    for layer in range(n):
+        calls = seen[layer::n]
+        p = calls[0][0]
+        x = torch.cat([c[1] for c in calls], dim=1)
+        y = torch.cat([c[3] for c in calls], dim=1).float()
+        with torch.no_grad():
+            ref = attn_lib.mla_apply(p, x, positions, cfg).float()
+        errs.append(float((y - ref).abs().max()))
+    seen.clear()
+    ok = max(errs) <= TOL[torch.bfloat16] and all(map(math.isfinite, errs))
+    say(f"deepseek numerics: {what} bf16, {b} rows x {s} positions, on "
+        f"{smi}, each layer's absorbed decode vs mla_apply on the same "
+        f"inputs: max|err| "
+        f"per layer {[float(f'{e:.3e}') for e in errs]} (atol "
+        f"{TOL[torch.bfloat16]:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the absorbed MLA decode disagrees with "
+                             "mla_apply")
+
+
+def serve_deepseek(dev, smi) -> None:
+    """Phase 23, first part: DeepSeek-V3 at full width with its 3 dense
+    layers and DEEPSEEK_MOE of its 58 MoE layers, bf16, seeded on the
+    card, served over a seeded open-loop trace: MLA has no kernel, so no
+    decode_attention launch."""
+    cfg = _deepseek(DEEPSEEK_MOE)
+    what = f"{DEEPSEEK} (3 dense + {DEEPSEEK_MOE} of 58 MoE layers)"
+    params, _, _ = _init_counted(cfg, dev, f"{what} full width bf16 "
+                                 f"({active_param_count(cfg):,} active per "
+                                 f"token) on {smi}")
+    engine = ServeEngine(ServeConfig(
+        arch=DEEPSEEK, smoke=False, slots=8, max_len=512, temperature=1.0,
+        seed=SEED, device=str(dev)), model_cfg=cfg, params=params)
+    mcfg = engine.model_cfg
+    batch_generate(engine, np.arange(1, 9, dtype=np.int32)[None], 2)
+    requests = generate_requests(TrafficConfig(
+        vocab_size=cfg.vocab_size, seed=SEED, **DEEPSEEK_TRACE))
+    prefill_positions = sum(len(r.prompt) for r in requests)
+    decode_ops.reset_launches()
+    reset_jit_dispatches()
+    result = run_open_loop(engine, requests)
+    launches = decode_ops.launches()
+    calls = jit_dispatches()
+    steps = _check_open_loop(mcfg, requests, result, calls, launches)
+    row = summarize(result, slots=8, rate=DEEPSEEK_TRACE["rate"])
+    per_slot = sum(t[:, 0].numel() * t.element_size()
+                   for t in tree_leaves(engine.cache))
+    say(f"deepseek serve: {what} full width bf16, 8 slots x 512, "
+        f"{DEEPSEEK_TRACE['n_requests']} requests @ {DEEPSEEK_TRACE['rate']}"
+        f" q/s on {smi}: {row['throughput_tok_s']} tok/s, TTFT p50/p99 "
+        f"{row['ttft_p50_ms']}/{row['ttft_p99_ms']} ms, TPOT p50/p99 "
+        f"{row['tpot_p50_ms']}/{row['tpot_p99_ms']} ms; {steps} decode steps "
+        f"+ {prefill_positions} prefill positions, {calls} program calls, "
+        f"decode_attention launches {launches}; MLA cache per slot "
+        f"{per_slot / 1e6:.2f} MB ({cfg.n_layers} layers x 512 x "
+        f"{cfg.kv_lora_rank + cfg.qk_rope_dim} values x 2 B)")
+    say("deepseek serve row: " + json.dumps(row, sort_keys=True))
+    # a step reads every weight but the embedding (8 of its rows) once, the
+    # experts' whatever the tokens chose, and each slot's cache to its row
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params)) - \
+        params["embed"].numel() * params["embed"].element_size()
+    expert_bytes = sum(p[name].numel() * p[name].element_size()
+                       for spec, p in tf.layers_of(cfg, params)
+                       if spec.ffn == "moe"
+                       for name in ("w_gate", "w_up", "w_down"))
+    step = time_decode_step(engine, smi)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"deepseek serve: {what} decode step on {smi}: host "
+        f"{step['host_ms']:.2f} ms, device {step['step_ms']:.2f} ms; bytes a "
+        f"step {weight_bytes / 1e9:.2f} GB ({expert_bytes / 1e9:.2f} GB "
+        f"experts), least time at {HBM_BYTES_PER_S / 1e12:g} TB/s "
+        f"{bound_ms:.2f} ms ({100 * bound_ms / step['step_ms']:.1f}% of the "
+        f"device step)")
+    _moe_without_host_sync(engine, params)
+    del engine
+    _mla_layers_vs_apply(cfg, params, dev, smi, what)
+    del params
+
+
+def deepseek_float32(dev, smi) -> None:
+    """Phase 23: DeepSeek-V3 at full width, 3 dense + DEEPSEEK_F32_MOE MoE
+    layers in float32 at capacity factor 256 (no choice dropped):
+    teacher-forced ``decode_step`` over 16 positions against ``forward``
+    below the reference's 5e-4."""
+    cfg = _deepseek(DEEPSEEK_F32_MOE, param_dtype="float32",
+                    compute_dtype="float32", capacity_factor=256.0)
+    what = f"{DEEPSEEK} (3 dense + {DEEPSEEK_F32_MOE} MoE layers)"
+    params, _, _ = _init_counted(cfg, dev,
+                                 f"{what} full width float32 on {smi}")
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, DEEPSEEK_F32_POSITIONS)).astype(np.int32)
+                              ).to(dev)
+    with torch.no_grad():
+        full, _ = tf.forward(cfg, params, {"tokens": tokens})
+        cache = tf.init_cache(cfg, 1, DEEPSEEK_F32_POSITIONS, dev)
+        steps = torch.cat([tf.decode_step(cfg, params, cache,
+                                          tokens[:, i:i + 1], i)[0]
+                           for i in range(DEEPSEEK_F32_POSITIONS)], dim=1)
+    gap = float((steps - full).abs().max())
+    ok = gap < DEEPSEEK_F32_GAP and math.isfinite(gap)
+    say(f"deepseek numerics: {what} full width float32, capacity factor "
+        f"256, on {smi}: decode_step over {DEEPSEEK_F32_POSITIONS} positions "
+        f"vs forward max|diff| {gap:.3e} (< {DEEPSEEK_F32_GAP:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: decode and forward disagree")
+    del params, cache, full, steps
+
+
+def deepseek_mtp(dev, smi) -> None:
+    """Phase 23: ``loss_fn`` with ``mtp_depth=1`` at full width (3 dense +
+    1 MoE layer and the MTP block, bf16) under ``no_grad`` on 2 x 256
+    tokens: finite, and above the loss without the MTP term."""
+    cfg = _deepseek(1, mtp_depth=1)
+    what = f"{DEEPSEEK} (3 dense + 1 MoE layer, mtp_depth=1)"
+    params, _, _ = _init_counted(cfg, dev, f"{what} full width bf16 on {smi}")
+    b, s = MTP_BATCH
+    rng = np.random.default_rng(SEED)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                                 .astype(np.int32)).to(dev)
+             for k in ("tokens", "labels")}
+    plain = {k: v for k, v in params.items() if k != "mtp"}
+    with torch.no_grad():
+        tf.loss_fn(cfg, params, batch)                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(tf.loss_fn(cfg, params, batch))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        base = float(tf.loss_fn(cfg.replace(mtp_depth=0), plain, batch))
+    ok = math.isfinite(loss) and loss > base
+    say(f"deepseek mtp: {what} full width bf16, loss_fn on {b} x {s} tokens "
+        f"under no_grad, on {smi}: loss {loss:.4f} with MTP > {base:.4f} "
+        f"without ({cfg.mtp_loss_weight:g} x the MTP term), wall "
+        f"{wall_ms:.1f} ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the MTP loss is not finite or adds nothing")
+    del params, plain
+
+
+def _whisper_frames(cfg, dev) -> torch.Tensor:
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    return 0.05 * torch.randn((WHISPER_B, cfg.n_audio_ctx, cfg.d_model),
+                              generator=g, device=dev)
+
+
+def _whisper_forwards(cfg, params, frames, dev, smi) -> tuple[int, float]:
+    """``use_flash`` forwards at decoder length WHISPER_LEN: in bf16 each
+    decoder layer's kernel output against ``attention_plain`` on its own
+    inputs (``bf16_forward_layers``), none launched for the encoder; in
+    float32 the logits against the forward without ``use_flash``.
+    Returns the launches and the largest |kernel - plain|."""
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (WHISPER_B, WHISPER_LEN)).astype(np.int32)).to(dev)
+    batch = {"tokens": tokens, "frames": frames}
+    launches, worst = bf16_forward_layers(
+        cfg.replace(use_flash=True), params, batch,
+        f"whisper eval: {WHISPER} whole bf16, {WHISPER_B} x "
+        f"{cfg.n_audio_ctx} frames, decoder {WHISPER_LEN} tokens, D="
+        f"{cfg.head_dim} group 1, on {smi}")
+    f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    before = flash_ops.launches("simt_fp32")
+    with torch.no_grad():
+        kernel, _ = tf.forward(f32.replace(use_flash=True), p32, batch)
+        n = flash_ops.launches("simt_fp32") - before
+        plain, _ = tf.forward(f32, p32, batch)
+    err = float((kernel - plain).abs().max())
+    ok = n == cfg.n_layers and err <= WHISPER_F32_LOGITS and math.isfinite(err)
+    say(f"whisper eval: {WHISPER} whole float32 on {smi}, use_flash "
+        f"(decoder: kernel, encoder: _sdpa_blocked) vs plain: {n} "
+        f"flash_attention launches, "
+        f"logits max|diff| {err:.3e} (atol {WHISPER_F32_LOGITS:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("Whisper's use_flash forward disagrees with "
+                             "the plain one or launched the kernel other "
+                             "than once per decoder layer")
+    del p32, kernel, plain
+    return launches + n, worst
+
+
+def _whisper_generate(cfg, params, frames, prompt, kernel: bool):
+    """``_encode`` once, each decoder layer's ``cross_kv_cache`` written
+    into the cache, a prefill of the prompt and WHISPER_GEN - 1 greedy
+    ``decode_step_positions``; returns the tokens [B, WHISPER_GEN] and the
+    cache."""
+    c = cfg.replace(use_decode_kernel=kernel)
+    b, p = prompt.shape
+    cache = tf.init_cache(c, b, p + WHISPER_GEN, frames.device)
+    with torch.no_grad():
+        enc = tf._encode(c, params, frames)
+        for (_, lp), lc in zip(tf.layers_of(c, params),
+                               tf.layer_caches(c, cache)):
+            for key, t in attn_lib.cross_kv_cache(lp, enc, c).items():
+                lc["cross"][key].copy_(t)
+        logits, _ = tf.prefill(c, params, cache, prompt)
+        tok = torch.argmax(logits[:, -1].float(), dim=-1).to(torch.int32)
+        out = [tok]
+        for i in range(WHISPER_GEN - 1):
+            pos = torch.full((b,), p + i, dtype=torch.int32,
+                             device=prompt.device)
+            logits, _ = tf.decode_step_positions(c, params, cache,
+                                                 tok[:, None], pos)
+            tok = torch.argmax(logits[:, -1].float(), dim=-1).to(torch.int32)
+            out.append(tok)
+    return torch.stack(out, dim=1), cache
+
+
+def _whisper_decode(cfg, params, frames, dev, smi, what: str
+                    ) -> tuple[int, float]:
+    """Greedy decode with the decode kernel (12 launches a position, the
+    first decode step's layers held against the plain version on their own
+    inputs in bf16) and, in float32, without it (tokens identical) and
+    teacher-forced against the forward (below 5e-4).  Returns the
+    launches and the largest |kernel - plain| on real activations."""
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (WHISPER_B, WHISPER_PROMPT)).astype(np.int32)
+                              ).to(dev)
+    positions = WHISPER_PROMPT + WHISPER_GEN - 1
+    decode_ops.reset_launches()
+    # the first decode step after the prefill (every row at position P)
+    with capturing_decode_step(WHISPER_B, cfg.n_layers,
+                               skip=WHISPER_PROMPT * cfg.n_layers) as seen:
+        tokens, cache = _whisper_generate(cfg, params, frames, prompt, True)
+        torch.cuda.synchronize()
+        launches = decode_ops.launches()
+        layer_io = list(seen)
+    if launches != cfg.n_layers * positions:
+        raise AssertionError(f"{WHISPER}: decode_attention launched "
+                             f"{launches}, expected {cfg.n_layers} x "
+                             f"{positions} positions")
+    worst = _layers_vs_plain(layer_io, f"{what} bf16 on {smi}")
+    del layer_io
+    step = time_step(cfg.replace(use_decode_kernel=True), params, cache, smi,
+                     WHISPER_PROMPT + WHISPER_GEN // 2,
+                     WHISPER_PROMPT + WHISPER_GEN)
+    del cache
+    say(f"whisper decode: {what} bf16, {WHISPER_B} rows x "
+        f"{WHISPER_PROMPT}-token prompts + {WHISPER_GEN} greedy tokens over "
+        f"the cross caches on {smi}: decode_attention {launches // positions}"
+        f" launches per position (H = KV = {cfg.n_heads}, D={cfg.head_dim}); "
+        f"step host {step['host_ms']:.2f} ms, device {step['step_ms']:.2f} ms")
+    f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    toks = {k: _whisper_generate(f32, p32, frames, prompt, k)[0]
+            for k in (True, False)}
+    same = torch.equal(toks[True], toks[False])
+    seq = torch.cat([prompt, toks[True][:, :-1]], dim=1)
+    kcfg = f32.replace(use_decode_kernel=True)
+    cache = tf.init_cache(kcfg, WHISPER_B, seq.shape[1], dev)
+    with torch.no_grad():
+        enc = tf._encode(kcfg, p32, frames)
+        for (_, lp), lc in zip(tf.layers_of(kcfg, p32),
+                               tf.layer_caches(kcfg, cache)):
+            for key, t in attn_lib.cross_kv_cache(lp, enc, kcfg).items():
+                lc["cross"][key].copy_(t)
+        steps = torch.cat([tf.decode_step(kcfg, p32, cache, seq[:, i:i + 1],
+                                          i)[0]
+                           for i in range(seq.shape[1])], dim=1)
+        full, _ = tf.forward(f32, p32, {"tokens": seq, "frames": frames})
+    gap = float((steps - full).abs().max())
+    ok = same and gap < DEEPSEEK_F32_GAP and math.isfinite(gap)
+    say(f"whisper decode: {what} float32 on {smi}, greedy tokens with and "
+        f"without the kernel {'identical' if same else 'DIFFER'}; "
+        f"teacher-forced decode "
+        f"vs forward max|diff| {gap:.3e} (< {DEEPSEEK_F32_GAP:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{WHISPER}: the float32 decode disagrees")
+    del p32, cache, steps, full
+    return launches, worst
+
+
+def whisper_path(dev, smi) -> dict:
+    """Phase 23, second part: Whisper-small whole (encoder and decoder)
+    on seeded stub frames: the ``use_flash`` forwards, the decode through
+    the cross caches, and ``ServeEngine`` refusing the arch.  Returns each
+    attention kernel's launches and largest |kernel - plain|."""
+    cfg = get_config(WHISPER)
+    what = f"{WHISPER} whole"
+    params, _, _ = _init_counted(cfg, dev, f"{what} bf16 on {smi}")
+    frames = _whisper_frames(cfg, dev)
+    flash, flash_err = _whisper_forwards(cfg, params, frames, dev, smi)
+    dec, dec_err = _whisper_decode(cfg, params, frames, dev, smi, what)
+    try:
+        ServeEngine(ServeConfig(arch=WHISPER, smoke=False, device=str(dev)))
+    except ValueError as e:
+        refused = "encoder-decoder" in str(e)
+    else:
+        refused = False
+    said = ("raises the encoder-decoder ValueError" if refused
+            else "DID NOT RAISE")
+    say(f"whisper serve: ServeEngine(arch={WHISPER!r}) {said} "
+        f"{'ok' if refused else 'FAIL'}")
+    if not refused:
+        raise AssertionError("the engine took an encoder-decoder arch")
+    del params, frames
+    return {"decode_attention": (dec, dec_err),
+            "flash_attention": (flash, flash_err)}
+
+
+def last_archs(dev, smi) -> dict:
+    """Phase 23: DeepSeek-V3 served, its float32 and MTP checks, then
+    Whisper-small; the card freed between models."""
+    _free_card()
+    serve_deepseek(dev, smi)
+    _free_card()
+    deepseek_float32(dev, smi)
+    _free_card()
+    deepseek_mtp(dev, smi)
+    _free_card()
+    out = whisper_path(dev, smi)
+    _free_card()
+    return out
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -3873,7 +4329,7 @@ def main() -> int:
     times = {"decode_attention": time_decode(SERVE_SHAPE, dev, smi)}
     time_decode(SERVE_SHAPE, dev, smi, position=SERVE_POSITION)
     time_decode(LONG_SHAPE, dev, smi)
-    for shape in ZOO_DECODE_SHAPES:
+    for shape in ZOO_DECODE_SHAPES + [WHISPER_DECODE_SHAPE]:
         time_decode(shape, dev, smi)
     ghost = time_ghost(dev, smi)
     times["ghost_norm"] = ghost["row"]
@@ -3881,7 +4337,7 @@ def main() -> int:
     del ghost
     torch.cuda.empty_cache()
     times["flash_attention"] = time_flash(dev, smi)
-    for shape in ZOO_FLASH_SHAPES:
+    for shape in ZOO_FLASH_SHAPES + [WHISPER_FLASH_SHAPE]:
         time_flash(dev, smi, shape)
     time_eval_forward(dev, smi, times["flash_attention"]["ms"])
     lap(t0, "phase 11")
@@ -3938,6 +4394,11 @@ def main() -> int:
     launches["decode_attention"] += jamba_launches
     worst["decode_attention"] = max(worst["decode_attention"], jamba_err)
     say(f"phase 22: {time.perf_counter() - t22:.1f} s")
+    t23 = time.perf_counter()
+    for name, (n, err) in last_archs(dev, smi).items():
+        launches[name] += n
+        worst[name] = max(worst[name], err)
+    say(f"phase 23: {time.perf_counter() - t23:.1f} s")
     lines = [{**k, "launches": launches[k["name"]],
               "max_abs_err": worst[k["name"]], **times[k["name"]]}
              for k in KERNELS]

@@ -2,12 +2,11 @@
 
 ``get_config(arch_id)`` returns the full-size config and
 ``get_smoke_config(arch_id)`` the reduced same-family variant the CPU
-tests use.  The ported ids are the reference's decoder-only stacks of GQA
-attention, Mamba-1 and RWKV6 mixers with dense or MoE FFNs: the GQA
-decoders, ``rwkv6-3b`` (attention-free) and ``jamba-v0.1-52b`` (Mamba and
-attention interleaved, MoE every other layer).  The reference's other
-architectures (DeepSeek-V3's MLA, Whisper's encoder-decoder) are listed
-in ROADMAP.md as still to port, and asking for one raises.
+tests use.  Every architecture of the reference's zoo is ported: the GQA
+decoders, ``rwkv6-3b`` (attention-free), ``jamba-v0.1-52b`` (Mamba and
+attention interleaved, MoE every other layer), ``deepseek-v3-671b`` (MLA,
+3 dense layers then 58 MoE) and ``whisper-small`` (encoder-decoder).  An
+unknown id raises.
 """
 
 from __future__ import annotations
@@ -23,6 +22,8 @@ ARCHITECTURES = {
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "whisper-small": "repro_torch.configs.whisper_small",
 }
 
 
@@ -31,8 +32,8 @@ def _module(arch_id: str):
         return importlib.import_module(ARCHITECTURES[arch_id])
     except KeyError:
         raise ValueError(
-            f"arch {arch_id!r} is not ported to repro_torch yet (ported: "
-            f"{', '.join(ARCHITECTURES)}); see ROADMAP.md for the queue"
+            f"unknown arch {arch_id!r} (repro_torch has: "
+            f"{', '.join(ARCHITECTURES)})"
         ) from None
 
 

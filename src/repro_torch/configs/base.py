@@ -2,12 +2,10 @@
 
 The fields are the reference's, so a config reads the same in both
 packages; ``pdtype``/``cdtype`` return ``torch.dtype``s where the
-reference returns ``jnp.dtype``s.  The port's model code runs attention,
-Mamba-1 and RWKV6 mixers with dense or MoE FFNs
-(``repro_torch.models.transformer`` raises on the rest), but the schema
-keeps every field, with the reference's defaults, so ``param_count`` and
-``active_param_count`` count every family and future slices need no new
-schema.
+reference returns ``jnp.dtype``s.  Every field has the reference's
+default, and ``param_count`` and ``active_param_count`` are the
+reference's formulas (which leave out the norms' parameters, MLA's latent
+norms and the MTP subtree).
 """
 
 from __future__ import annotations
@@ -49,7 +47,7 @@ class ModelConfig:
     # (repeat, pattern) groups; sum(repeat*len(pattern)) == n_layers
     stack: tuple[tuple[int, tuple[LayerSpec, ...]], ...] = ()
     ffn_kind: str = "swiglu"             # swiglu | geglu | relu2 | gelu
-    norm: str = "rmsnorm"                # rmsnorm | ln_nonparam
+    norm: str = "rmsnorm"                # rmsnorm | layernorm | ln_nonparam
     rope_type: str = "standard"          # standard | mrope | none
     rope_theta: float = 10000.0
     mrope_sections: tuple[int, int, int] = (0, 0, 0)

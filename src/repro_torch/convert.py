@@ -7,7 +7,9 @@ or as tensors where a checkpoint carries them:
   * ``params_from_jax(np_params, cfg)`` takes the reference's params
     pytree with numpy leaves (each layer leaf with its leading layers
     axis) and returns the port's parameter dict: flat ``layers`` where
-    ``transformer.is_flat(cfg)``, the ``group{gi}/e{j}`` nesting otherwise;
+    ``transformer.is_flat(cfg)``, the ``group{gi}/e{j}`` nesting otherwise,
+    and Whisper's ``encoder`` / ``enc_final_norm`` and DeepSeek's ``mtp``
+    subtree where the config has them;
   * ``params_to_numpy(params, cfg)`` is its inverse: the port's parameters
     (or a gradient tree of the same layout) in the reference's pytree, as
     float32 numpy arrays, so tests can compare trained parameters and
@@ -37,14 +39,25 @@ from repro_torch.models.layers import pname
 from repro_torch.models.transformer import cache_tree, check_supported, is_flat
 from repro_torch.tree import tree_map
 
-# every mixer's leaves (no name is shared between mixers), in the
-# reference's ``mixer`` dict: attention, then Mamba-1, then RWKV6
+_ATTN_KEYS = {
+    "wq": pname("wq", "embed", "qheads"),
+    "wk": pname("wk", "embed", "kv_heads"),
+    "wv": pname("wv", "embed", "kv_heads"),
+    "wo": pname("wo", "qheads", "embed"),
+}
+# every mixer's leaves (only attention's and MLA's ``wo`` is shared), in
+# the reference's ``mixer`` dict: attention, MLA, Mamba-1, then RWKV6
 _MIXER_KEYS = {
     name: ("mixer", key) for name, key in {
-        "wq": pname("wq", "embed", "qheads"),
-        "wk": pname("wk", "embed", "kv_heads"),
-        "wv": pname("wv", "embed", "kv_heads"),
-        "wo": pname("wo", "qheads", "embed"),
+        **_ATTN_KEYS,
+        "w_dq": pname("w_dq", "embed", "dc"),
+        "q_norm_scale": pname("q_norm_scale", "dc"),
+        "w_uq": pname("w_uq", "dc", "qheads"),
+        "w_dkv": pname("w_dkv", "embed", "dc"),
+        "kv_norm_scale": pname("kv_norm_scale", "dc"),
+        "w_uk": pname("w_uk", "dc", "qheads"),
+        "w_uv": pname("w_uv", "dc", "qheads"),
+        "w_kr": pname("w_kr", "embed", "rope"),
         "w_in": pname("w_in", "embed", "inner"),
         "conv_w": pname("conv_w", "conv", "inner"),
         "conv_b": pname("conv_b", "inner"),
@@ -81,6 +94,9 @@ _MOE_FFN_KEYS = {
     "w_shared_up": ("ffn", pname("w_shared_up", "embed", "mlp")),
     "w_shared_down": ("ffn", pname("w_shared_down", "mlp", "embed")),
 }
+# Whisper's cross attention: GQA's leaves under ``cross_`` in the port
+_CROSS_KEYS = {f"cross_{name}": ("cross", key)
+               for name, key in _ATTN_KEYS.items()}
 _ROUTER = "w_router"
 # leaves the reference keeps in float32 whatever the parameter dtype
 _FLOAT32 = {_ROUTER, "a_log", "d_skip", "decay_w0", "bonus_u", "token_mix"}
@@ -88,23 +104,33 @@ _FLOAT32 = {_ROUTER, "a_log", "d_skip", "decay_w0", "bonus_u", "token_mix"}
 
 _EMBED = pname("embed", "vocab", "embed")
 _SCALE = pname("scale", "embed")
+_BIAS = pname("bias", "embed")
 _HEAD = pname("head", "embed", "vocab")
+_MTP_PROJ = pname("w", "embed", "embed")
+
+
+def _norm_keys(name: str) -> dict:
+    """A norm's port names -> (reference sub-dict, key): the scale, and
+    the bias under ``layernorm`` (``name + "_bias"``)."""
+    return {name: (name, _SCALE), f"{name}_bias": (name, _BIAS)}
 
 
 def _keys(moe: bool) -> dict:
     """Port layer key -> (reference sub-dict, reference key), in
-    ``transformer.init``'s order; the norms only under RMSNorm
-    (``ln_nonparam`` leaves the reference's norm dicts empty)."""
-    return {"norm1": ("norm1", _SCALE), **_MIXER_KEYS,
-            "norm2": ("norm2", _SCALE),
-            **(_MOE_FFN_KEYS if moe else _DENSE_FFN_KEYS)}
+    ``transformer.init``'s order; the norms only where the norm has
+    parameters (``ln_nonparam`` leaves the reference's norm dicts
+    empty)."""
+    return {**_norm_keys("norm1"), **_MIXER_KEYS, **_norm_keys("norm2"),
+            **(_MOE_FFN_KEYS if moe else _DENSE_FFN_KEYS), **_CROSS_KEYS,
+            **_norm_keys("norm_cross")}
 
 
 def _layer_from(layer: dict, leaf) -> dict:
     """One pattern entry's port dict from its reference tree."""
     keys = _keys(_MOE_FFN_KEYS[_ROUTER][1] in layer["ffn"])
     return {name: leaf(layer[sub][key], name)
-            for name, (sub, key) in keys.items() if key in layer[sub]}
+            for name, (sub, key) in keys.items()
+            if key in layer.get(sub, {})}
 
 
 def _layer_to(layer: dict, leaf) -> dict:
@@ -112,10 +138,26 @@ def _layer_to(layer: dict, leaf) -> dict:
     parameters the reference's empty norm dicts."""
     keys = _keys(_ROUTER in layer)
     out: dict = {"norm1": {}, "norm2": {}}
+    if "cross_wq" in layer:
+        out["norm_cross"] = {}
     for name, t in layer.items():
         sub, key = keys[name]
         out.setdefault(sub, {})[key] = leaf(t)
     return out
+
+
+def _norm_from(tree: dict, name: str, leaf) -> dict:
+    """A top-level norm's port leaves from the reference's ``tree[name]``."""
+    return {port: leaf(tree[sub][key], port)
+            for port, (sub, key) in _norm_keys(name).items()
+            if key in tree[sub]}
+
+
+def _norm_to(params: dict, name: str, leaf) -> dict:
+    """The reference's dict of a top-level norm (empty without
+    parameters)."""
+    return {key: leaf(params[port])
+            for port, (_, key) in _norm_keys(name).items() if port in params}
 
 
 def _groups(tree: dict) -> list[str]:
@@ -134,10 +176,18 @@ def _from_layout(tree: dict, leaf, head: bool, flat: bool) -> dict:
         for g in _groups(tree):
             params[g] = {e: _layer_from(layer, leaf)
                          for e, layer in tree[g].items()}
-    if _SCALE in tree["final_norm"]:
-        params["final_norm"] = leaf(tree["final_norm"][_SCALE], "final_norm")
+    params.update(_norm_from(tree, "final_norm", leaf))
     if head:
         params["head"] = leaf(tree[_HEAD], "head")
+    if "mtp" in tree:
+        mtp = tree["mtp"]
+        params["mtp"] = {"proj": leaf(mtp["proj"][_MTP_PROJ], "proj"),
+                         **_norm_from(mtp, "norm_h", leaf),
+                         **_norm_from(mtp, "norm_e", leaf),
+                         "block": _layer_from(mtp["block"], leaf)}
+    if "encoder" in tree:
+        params["encoder"] = {"e0": _layer_from(tree["encoder"]["e0"], leaf)}
+        params.update(_norm_from(tree, "enc_final_norm", leaf))
     return params
 
 
@@ -146,8 +196,7 @@ def _to_layout(params: dict, leaf, head: bool, flat: bool) -> dict:
     ``leaf``; ``flat`` as for ``_from_layout``."""
     out = {
         _EMBED: leaf(params["embed"]),
-        "final_norm": ({_SCALE: leaf(params["final_norm"])}
-                       if "final_norm" in params else {}),
+        "final_norm": _norm_to(params, "final_norm", leaf),
     }
     if flat:
         out["group0"] = {"e0": _layer_to(params["layers"], leaf)}
@@ -157,6 +206,15 @@ def _to_layout(params: dict, leaf, head: bool, flat: bool) -> dict:
                       for e, layer in params[g].items()}
     if head:
         out[_HEAD] = leaf(params["head"])
+    if "mtp" in params:
+        mtp = params["mtp"]
+        out["mtp"] = {"proj": {_MTP_PROJ: leaf(mtp["proj"])},
+                      "norm_h": _norm_to(mtp, "norm_h", leaf),
+                      "norm_e": _norm_to(mtp, "norm_e", leaf),
+                      "block": _layer_to(mtp["block"], leaf)}
+    if "encoder" in params:
+        out["encoder"] = {"e0": _layer_to(params["encoder"]["e0"], leaf)}
+        out["enc_final_norm"] = _norm_to(params, "enc_final_norm", leaf)
     return out
 
 

@@ -1,15 +1,16 @@
-"""Grouped-query attention: full sequences, and decoding per row.
+"""Attention: GQA, DeepSeek's MLA and Whisper's cross attention, over full
+sequences and decoding per row.
 
-Counterpart of the GQA half of ``repro.models.attention``.
+Counterpart of ``repro.models.attention``.
 
   * ``gqa_apply`` — full-sequence attention.  By default the float32
     ``_sdpa`` with an additive ``_causal_mask``: plain products that the
     reference leaves to XLA.  With ``cfg.use_flash``, the reference's
     routing with "tpu" read as "cuda": causal attention on CUDA tensors
     goes to the ``flash_attention`` kernel (forward only, as the
-    reference's Pallas kernel has no VJP), everything else (CPU tensors,
-    ``causal=False``) to ``_sdpa_blocked``, FlashAttention's algorithm in
-    plain PyTorch.
+    reference's Pallas kernel has no VJP) at any sequence length,
+    everything else (CPU tensors, ``causal=False``) to ``_sdpa_blocked``,
+    FlashAttention's algorithm in plain PyTorch.
   * ``gqa_decode`` — one token per row.  The reference's ``gqa_decode``
     takes one scalar ``index`` and gets per-slot positions from
     ``jax.vmap`` (``transformer.decode_step_positions``); the port writes
@@ -18,7 +19,21 @@ Counterpart of the GQA half of ``repro.models.attention``.
     use ``index[b]`` without a host sync.
 
 Both rotate q and k with standard RoPE or, for ``rope_type="mrope"``,
-Qwen2-VL's M-RoPE.  MLA and cross attention are not ported yet.
+Qwen2-VL's M-RoPE.
+
+  * ``mla_apply`` / ``mla_decode`` — DeepSeek's multi-head latent
+    attention.  The full-sequence form materialises per-head K and V from
+    the compressed latent; the decode is absorbed: ``w_uk`` is folded into
+    the query and ``w_uv`` applied after the softmax, so a step attends
+    over the cache of ``kv_lora_rank`` latents plus one ``qk_rope_dim``
+    rope key a token (576 values for V3), shared by every head, and never
+    forms per-head K or V.  As ``gqa_decode``, ``index`` is int32 [B]: row
+    b writes and masks at ``index[b]``.  Plain products, as the
+    reference's are (no kernel of the reference lies on this path).
+  * ``cross_apply`` / ``cross_kv_cache`` / ``cross_decode`` — Whisper's
+    decoder attending over the encoder's output with no mask, plain
+    ``_sdpa``.  Its projections live in the layer's dict as ``cross_wq``,
+    ``cross_wk``, ``cross_wv`` and ``cross_wo`` beside the self-attention's.
 """
 
 from __future__ import annotations
@@ -33,9 +48,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import (
+    apply_rope,
     dense_init,
     matmul,
     mrope_angles,
+    rmsnorm,
     rope_angles,
     rotate,
     sin_cos,
@@ -177,7 +194,11 @@ def gqa_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     q, k = rope(q, k, positions, cfg, mrope_positions)
     if cfg.use_flash:
         if causal and q.device.type == "cuda":
-            out = flash_attention(q, k, v, causal=True, window=window)
+            # blocks of the whole sequence: the kernel's own tiles mask
+            # ragged edges, so any S runs (the reference's Pallas call
+            # needs S a multiple of its 128-row block; Whisper's 448 is not)
+            out = flash_attention(q, k, v, causal=True, window=window,
+                                  block_q=s, block_k=s)
         else:
             out = _sdpa_blocked(q, k, v, causal=causal, window=window)
     else:
@@ -244,3 +265,165 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
         out = _sdpa(q, k_cache, v_cache, mask)
     y = matmul(out.reshape(b, 1, h * hd), p["wo"])
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2/V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_init(cfg, dtype: torch.dtype, generator: torch.Generator,
+             out: dict | None = None) -> dict:
+    """The down- and up-projections of q and of the KV latent, their
+    RMSNorm scales (ones), the shared rope key's projection and ``wo``;
+    ``out`` (name -> tensor) receives the draws in place."""
+    d, h = cfg.d_model, cfg.n_heads
+    qr, dc = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    o = out or {}
+    dev = generator.device
+    return {
+        "w_dq": dense_init(d, (d, qr), dtype, generator, o.get("w_dq")),
+        "q_norm_scale": torch.ones(qr, dtype=dtype, device=dev),
+        "w_uq": dense_init(qr, (qr, h * (dn + dr)), dtype, generator,
+                           o.get("w_uq")),
+        "w_dkv": dense_init(d, (d, dc), dtype, generator, o.get("w_dkv")),
+        "kv_norm_scale": torch.ones(dc, dtype=dtype, device=dev),
+        "w_uk": dense_init(dc, (dc, h * dn), dtype, generator, o.get("w_uk")),
+        "w_uv": dense_init(dc, (dc, h * dv), dtype, generator, o.get("w_uv")),
+        "w_kr": dense_init(d, (d, dr), dtype, generator, o.get("w_kr")),
+        "wo": dense_init(h * dv, (h * dv, d), dtype, generator, o.get("wo")),
+    }
+
+
+def _mla_q(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The queries' no-rope and rope parts [B,S,H,dn], [B,S,H,dr]."""
+    b, s, _ = x.shape
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    ql = rmsnorm(matmul(x, p["w_dq"]), p["q_norm_scale"])
+    q = matmul(ql, p["w_uq"]).reshape(b, s, cfg.n_heads, dn + dr)
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_latents(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The normed KV latent c [B,S,dc] and the rope key kr [B,S,dr], one
+    for all heads, rotated at ``positions``."""
+    c = rmsnorm(matmul(x, p["w_dkv"]), p["kv_norm_scale"])
+    kr = matmul(x, p["w_kr"])
+    kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c, kr
+
+
+def mla_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
+              window: int | None = None) -> torch.Tensor:
+    """Full-sequence causal MLA (training / prefill), per-head K and V
+    materialised.  x: [B,S,D]; positions: [B,S] -> [B,S,D]."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    c, kr = _mla_latents(p, x, positions, cfg)
+    k_nope = matmul(c, p["w_uk"]).reshape(b, s, h, dn)
+    v = matmul(c, p["w_uv"]).reshape(b, s, h, dv)
+    scores = (torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
+              + torch.einsum("bshd,btd->bhst", q_rope.float(), kr.float())
+              ) * (1.0 / math.sqrt(dn + dr))
+    scores = scores + _causal_mask(s, s, 0, window, x.device)[:, 0]
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs, v.float()).to(x.dtype)
+    return matmul(out.reshape(b, s, h * dv), p["wo"])
+
+
+def mla_init_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
+                   device) -> dict:
+    """The compressed cache: latents ``c`` [B,L,dc] and rope keys ``kr``
+    [B,L,dr]."""
+    return {
+        "c": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                         device=device),
+        "kr": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                          device=device),
+    }
+
+
+def mla_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
+               cfg, *, window: int | None = None
+               ) -> tuple[torch.Tensor, dict]:
+    """Absorbed one-token MLA decode.  x: [B,1,D]; cache ``c`` [B,L,dc]
+    and ``kr`` [B,L,dr]; index: int32 [B].
+
+    Writes row b's latent and rope key at ``index[b]`` IN PLACE and attends
+    row b over positions up to it (within ``window``), with no host sync.
+    The query's no-rope part is taken into the latent space through
+    ``w_uk`` and the context out of it through ``w_uv``: scores and
+    probabilities in float32 over the compressed cache, the context cast
+    to x's dtype before the ``w_uv`` product, as the reference's."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    dn, dr, dv, dc = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                      cfg.kv_lora_rank)
+    c, kr = cache["c"], cache["kr"]
+    pos = index[:, None]                                       # [B,1]
+    q_nope, q_rope = _mla_q(p, x, pos, cfg)                    # [B,1,H,dn/dr]
+    c_new, kr_new = _mla_latents(p, x, pos, cfg)               # [B,1,dc/dr]
+    rows = (torch.arange(b, device=x.device), index.long())
+    c.index_put_(rows, c_new[:, 0].to(c.dtype))
+    kr.index_put_(rows, kr_new[:, 0].to(kr.dtype))
+    w_uk = p["w_uk"].reshape(dc, h, dn)
+    w_uv = p["w_uv"].reshape(dc, h, dv)
+    dt = torch.promote_types(q_nope.dtype, w_uk.dtype)
+    q_abs = torch.einsum("bshn,dhn->bshd", q_nope.to(dt), w_uk.to(dt))
+    scores = (torch.einsum("bshd,bld->bhsl", q_abs.float(), c.float())
+              + torch.einsum("bshr,blr->bhsl", q_rope.float(), kr.float())
+              ) * (1.0 / math.sqrt(dn + dr))
+    kj = torch.arange(c.shape[1], device=x.device)[None, :]
+    at = index.long()[:, None]
+    ok = kj <= at
+    if window is not None:
+        ok &= kj > at - window
+    scores = torch.where(ok[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhsl,bld->bshd", probs, c.float())     # [B,1,H,dc]
+    dt = torch.promote_types(x.dtype, w_uv.dtype)
+    out = torch.einsum("bshd,dhv->bshv", ctx.to(x.dtype).to(dt), w_uv.to(dt))
+    return matmul(out.reshape(b, 1, h * dv), p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (Whisper's decoder)
+# ---------------------------------------------------------------------------
+
+CROSS = ("cross_wq", "cross_wk", "cross_wv", "cross_wo")
+
+
+def cross_init(cfg, dtype: torch.dtype, generator: torch.Generator,
+               out: dict | None = None) -> dict:
+    """GQA's q, k, v and o projections under the ``cross_`` names."""
+    o = out or {}
+    p = gqa_init(cfg, dtype, generator,
+                 {name[6:]: o.get(name) for name in CROSS})
+    return {f"cross_{name}": t for name, t in p.items()}
+
+
+def cross_kv_cache(p: dict, enc: torch.Tensor, cfg) -> dict:
+    """The encoder's K and V [B,T,KV,hd] for one layer, computed once per
+    request for the decode."""
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    return {"k": _split_heads(matmul(enc, p["cross_wk"]), kv, hd),
+            "v": _split_heads(matmul(enc, p["cross_wv"]), kv, hd)}
+
+
+def cross_apply(p: dict, x: torch.Tensor, enc: torch.Tensor, cfg
+                ) -> torch.Tensor:
+    """x: [B,S,D] decoder states; enc: [B,T,D] encoder output; no mask."""
+    return cross_decode(p, x, cross_kv_cache(p, enc, cfg), cfg)
+
+
+def cross_decode(p: dict, x: torch.Tensor, ckv: dict, cfg) -> torch.Tensor:
+    """x: [B,S,D] over the precomputed ``ckv`` (``cross_kv_cache``)."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = _split_heads(matmul(x, p["cross_wq"]), h, hd)
+    out = _sdpa(q, ckv["k"], ckv["v"], None)
+    return matmul(out.reshape(b, s, h * hd), p["cross_wo"])

@@ -1,4 +1,5 @@
-"""Primitive layers: initialisers, the norms, RoPE / M-RoPE and the FFN kinds.
+"""Primitive layers: initialisers, the norms, RoPE / M-RoPE, the FFN kinds
+and Whisper's sinusoidal positions.
 
 Counterpart of ``repro.models.layers``.  The port keeps its parameters in
 plain dicts of tensors under its own short names; ``pname`` stays so that
@@ -84,27 +85,50 @@ def layernorm_nonparam(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-NORMS = ("rmsnorm", "ln_nonparam")
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Parametric LayerNorm (Whisper's), in the reference's order: the
+    non-parametric norm cast back to ``x``'s dtype, then scale and bias in
+    float32, cast again.  In bfloat16 the middle rounding is part of the
+    result."""
+    y = layernorm_nonparam(x, eps).float()
+    y = y * scale.float()
+    y = y + bias.float()
+    return y.to(x.dtype)
+
+
+NORMS = ("rmsnorm", "ln_nonparam", "layernorm")
 
 
 def make_norm(kind: str, d: int, dtype: torch.dtype, device
               ) -> torch.Tensor | None:
-    """The norm's parameter: a [d] scale of ones for ``rmsnorm``, None for
-    ``ln_nonparam`` (which has none)."""
-    if kind == "rmsnorm":
+    """The norm's scale: a [d] tensor of ones for ``rmsnorm`` and
+    ``layernorm``, None for ``ln_nonparam`` (which has none)."""
+    if kind in ("rmsnorm", "layernorm"):
         return torch.ones(d, dtype=dtype, device=device)
     if kind == "ln_nonparam":
         return None
     raise ValueError(f"unknown norm {kind!r}")
 
 
-def apply_norm(kind: str, scale: torch.Tensor | None, x: torch.Tensor
-               ) -> torch.Tensor:
-    """The configured norm of ``x`` (``scale`` from ``make_norm``)."""
+def make_norm_bias(kind: str, d: int, dtype: torch.dtype, device
+                   ) -> torch.Tensor | None:
+    """The norm's bias: [d] zeros for ``layernorm``, None for the others.
+    A model keeps it beside the scale, under the scale's name + ``_bias``."""
+    return torch.zeros(d, dtype=dtype, device=device) \
+        if kind == "layernorm" else None
+
+
+def apply_norm(kind: str, scale: torch.Tensor | None, x: torch.Tensor,
+               bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The configured norm of ``x`` (``scale`` from ``make_norm``, ``bias``
+    from ``make_norm_bias``)."""
     if kind == "rmsnorm":
         return rmsnorm(x, scale)
     if kind == "ln_nonparam":
         return layernorm_nonparam(x)
+    if kind == "layernorm":
+        return layernorm(x, scale, bias)
     raise ValueError(f"unknown norm {kind!r}")
 
 
@@ -216,3 +240,15 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
     (``mrope_angles``)."""
     return rotate(x, *sin_cos(mrope_angles(positions_3d, x.shape[-1], theta,
                                            sections)))
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embeddings [n, d] in float32: sines in
+    the even columns, cosines in the odd, at angles pos / 10000^(2i/d)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (dim / d))
+    out = torch.zeros((n, d), dtype=torch.float32, device=device)
+    out[:, 0::2] = torch.sin(ang)
+    out[:, 1::2] = torch.cos(ang)
+    return out

@@ -1,17 +1,19 @@
-"""The decoder stack: init, forward and loss, KV cache and decode.
+"""The transformer stack: init, forward and loss, KV cache and decode.
 
-Counterpart of ``repro.models.transformer`` for decoder-only stacks of any
-groups and patterns of ``LayerSpec``s whose mixer is GQA attention
-(standard RoPE, M-RoPE or none), Mamba-1 or RWKV6 (``models.ssm``) and
-whose FFN is dense or a Mixture-of-Experts (``models.moe``), with RMSNorm
-or OLMo's non-parametric LayerNorm.  MLA, MTP, cross attention,
-encoder-decoder models and the parametric ``layernorm`` raise
-(ROADMAP.md).
+Counterpart of ``repro.models.transformer`` for every architecture of the
+reference's zoo: stacks of any groups and patterns of ``LayerSpec``s whose
+mixer is GQA attention (standard RoPE, M-RoPE or none), DeepSeek's MLA,
+Mamba-1 or RWKV6 (``models.ssm``) and whose FFN is dense or a
+Mixture-of-Experts (``models.moe``), with RMSNorm, LayerNorm (scale and
+bias) or OLMo's non-parametric LayerNorm; DeepSeek-V3's multi-token
+prediction (``mtp_depth``); and Whisper's encoder-decoder (an encoder over
+stub frame embeddings, cross attention in every decoder layer).
 
   init(cfg, seed, device)                      -> params
   forward(cfg, params, batch)                  -> (logits [B,S,V], aux)
   loss_fn(cfg, params, batch)                  -> scalar (token-mean CE
-                                                  + router_aux_coef * aux)
+                                                  + router_aux_coef * aux
+                                                  + mtp_loss_weight * MTP)
   per_example_loss_fn(cfg, params, example)    -> scalar (one example, DP)
   init_cache(cfg, batch, max_len, device)      -> cache
   decode_step(cfg, params, cache, tokens, index)           -> (logits, cache)
@@ -19,50 +21,77 @@ encoder-decoder models and the parametric ``layernorm`` raise
                                                -> (logits, cache)  [per-row]
   prefill(cfg, params, cache, tokens)          -> (last_logits, cache)
 
-Parameters are a plain dict: ``embed`` [V,D], ``final_norm`` [D] (RMSNorm
-only), ``head`` [D,V] when embeddings are untied, and the layers.  A
-stack of one group of one ``LayerSpec`` (``is_flat``) keeps them in
-``layers``, a dict of tensors each with a leading layers axis:
-``norm1``/``norm2`` (RMSNorm only), the mixer's — ``wq`` [n_layers, D,
-H*hd], ``wk``, ``wv``, ``wo`` for attention, ``ssm.mamba_init``'s or
-``ssm.rwkv6_init``'s leaves —, then the FFN's ``w_gate``/``w_up``/
-``w_down``, for MoE layers the experts' [n_layers, E, ...] and the
-float32 ``w_router`` [n_layers, D, E].  Other stacks nest them as the
-reference does: ``group{gi}`` / ``e{j}`` (the pattern's j-th spec) / the
-same names, with a leading axis of the group's repeat.  The forward is a
-Python loop over the layers in order.
+Parameters are a plain dict: ``embed`` [V,D], ``final_norm`` [D] (none
+under ``ln_nonparam``), ``head`` [D,V] when embeddings are untied, and the
+layers.  A norm's scale is kept under its name and, under ``layernorm``,
+its bias under the name + ``_bias`` (``final_norm_bias``, ``norm1_bias``).
+A stack of one group of one ``LayerSpec`` without cross attention
+(``is_flat``) keeps its layers in ``layers``, a dict of tensors each with
+a leading layers axis: ``norm1``/``norm2``, the mixer's — ``wq`` [n_layers,
+D, H*hd], ``wk``, ``wv``, ``wo`` for attention, ``attention.mla_init``'s,
+``ssm.mamba_init``'s or ``ssm.rwkv6_init``'s leaves —, then the FFN's
+``w_gate``/``w_up``/``w_down``, for MoE layers the experts' [n_layers, E,
+...] and the float32 ``w_router`` [n_layers, D, E].  Other stacks nest them
+as the reference does: ``group{gi}`` / ``e{j}`` (the pattern's j-th spec) /
+the same names, with a leading axis of the group's repeat.  Whisper's one
+spec carries cross attention and so two caches a layer (``attn`` and
+``cross``): it nests as well, as in the reference, and its layers add
+``cross_wq``/``cross_wk``/``cross_wv``/``cross_wo`` and ``norm_cross``.  An
+encoder-decoder also has ``encoder`` (``{"e0": ...}``, a dense attention
+layer's names with a leading axis of ``encoder_layers``) and
+``enc_final_norm``; with ``mtp_depth`` the params hold ``mtp``: ``proj``
+[2D, D], ``norm_h``, ``norm_e`` and ``block``, a layer of the stack's last
+spec with a leading axis of 1.  The forward is a Python loop over the
+layers in order.
 
 The cache of a flat stack is its one mixer's state with a leading layers
 axis: ``{"k", "v"}`` of shape [n_layers, B, L, KV, hd] for attention, the
 Mamba-1 or RWKV6 state leaves for a recurrent mixer.  Any other stack's is
 the reference's tree (``cache_tree``), ``group{gi}`` / ``e{j}`` / ``attn``
-({"k", "v"}) or ``ssm`` (the mixer's state), each leaf with a leading
-repeat axis.  Every leaf has the batch at axis 1.  Decoding updates it in
-place.
+({"k", "v"}, or MLA's compressed {"c", "kr"}) or ``ssm`` (the mixer's
+state), and ``cross`` ({"k", "v"} of [B, n_audio_ctx, KV, hd], zeros
+until the caller writes ``attention.cross_kv_cache`` of ``_encode``'s
+output into it), each leaf with a leading repeat axis.  Every leaf has the
+batch at axis 1.  Decoding updates it in place.
 
 A batch of a VLM (``arch_type="vlm"``) may carry ``vision_embeds``
 [B, S_v, D], the stubbed vision tower's patch embeddings, which prefix
 the text; ``mrope_positions`` [B, S, 3] is taken from the batch or
-broadcast from the positions, and the loss covers the text only.
+broadcast from the positions, and the loss covers the text only.  A batch
+of an encoder-decoder carries ``frames`` [B, n_audio_ctx, D], the stubbed
+conv frontend's frame embeddings.  Whisper's decoder adds no positions to
+its token embeddings (``rope_type="none"``, as the reference's code, not
+its config's docstring, has it).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import LayerSpec
 from repro_torch.models.attention import (
+    cross_apply,
+    cross_decode,
+    cross_init,
     gqa_apply,
     gqa_decode,
     gqa_init,
     gqa_init_cache,
+    mla_apply,
+    mla_decode,
+    mla_init,
+    mla_init_cache,
 )
 from repro_torch.models.layers import (
     NORMS,
     apply_norm,
+    dense_init,
     ffn_apply,
     ffn_init,
     make_norm,
+    make_norm_bias,
     matmul,
+    sinusoidal_positions,
     trunc_normal,
 )
 from repro_torch.models.moe import moe_apply, moe_init
@@ -78,7 +107,9 @@ from repro_torch.models.ssm import (
 )
 from repro_torch.tree import tree_map
 
-MIXERS = ("attn", "mamba", "rwkv6")
+MIXERS = ("attn", "mla", "mamba", "rwkv6")
+# the encoder's one layer kind
+ENCODER_SPEC = LayerSpec("attn", "dense")
 
 
 def check_supported(cfg) -> None:
@@ -86,48 +117,69 @@ def check_supported(cfg) -> None:
     cfg.validate()
     specs = [spec for _, pattern in cfg.stack for spec in pattern]
     ok = (all(spec.mixer in MIXERS and spec.ffn in ("dense", "moe")
-              and not spec.cross_attn for spec in specs)
-          and not cfg.is_encoder_decoder and not cfg.mtp_depth
+              for spec in specs)
           and cfg.norm in NORMS
           and cfg.rope_type in ("standard", "mrope", "none"))
     if ok and any(spec.ffn == "moe" for spec in specs):
         ok = cfg.n_experts > 0 and 0 < cfg.moe_top_k <= cfg.n_experts
     if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch runs decoder stacks of GQA attention, "
-            "Mamba-1 and RWKV6 mixers with dense or MoE FFNs, RMSNorm or "
-            "non-parametric LayerNorm and standard RoPE, M-RoPE or none; "
-            "MLA, MTP, cross attention, encoder-decoder models and "
-            "parametric LayerNorm are still to port (ROADMAP.md)"
+            f"{cfg.name}: repro_torch runs stacks of GQA attention, MLA, "
+            "Mamba-1 and RWKV6 mixers with dense or MoE FFNs, RMSNorm, "
+            "LayerNorm or non-parametric LayerNorm and standard RoPE, "
+            "M-RoPE or none"
         )
 
 
 def is_flat(cfg) -> bool:
-    """Whether the stack is one group of one ``LayerSpec``, whose layers
-    are kept flat: the parameters in ``params["layers"]``, the cache as
-    that spec's mixer state with a leading layers axis."""
-    return len(cfg.stack) == 1 and len(cfg.stack[0][1]) == 1
+    """Whether the stack is one group of one ``LayerSpec`` without cross
+    attention, whose layers are kept flat: the parameters in
+    ``params["layers"]``, the cache as that spec's mixer state with a
+    leading layers axis.  (A cross-attention layer holds two caches, so
+    Whisper nests as the reference does.)"""
+    return (len(cfg.stack) == 1 and len(cfg.stack[0][1]) == 1
+            and not cfg.stack[0][1][0].cross_attn)
 
 
-_MIXER_INIT = {"attn": gqa_init, "mamba": mamba_init, "rwkv6": rwkv6_init}
+_MIXER_INIT = {"attn": gqa_init, "mla": mla_init, "mamba": mamba_init,
+               "rwkv6": rwkv6_init}
+
+
+def _norm_init(cfg, name: str, device) -> dict:
+    """A norm's parameters under ``name``: the scale, and under
+    ``layernorm`` the bias as ``name + "_bias"``; none for
+    ``ln_nonparam``."""
+    p = {}
+    scale = make_norm(cfg.norm, cfg.d_model, cfg.pdtype, device)
+    if scale is not None:
+        p[name] = scale
+    bias = make_norm_bias(cfg.norm, cfg.d_model, cfg.pdtype, device)
+    if bias is not None:
+        p[f"{name}_bias"] = bias
+    return p
+
+
+def _norm(cfg, p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    """The configured norm of x with ``p``'s parameters under ``name``."""
+    return apply_norm(cfg.norm, p.get(name), x, p.get(f"{name}_bias"))
 
 
 def _layer_init(cfg, spec, g: torch.Generator, out: dict | None = None
                 ) -> dict:
     """One layer's parameters, drawn in a fixed order; ``out`` (name ->
-    tensor) receives the draws in place (the norms are returned new)."""
-    p = {}
-    norm = make_norm(cfg.norm, cfg.d_model, cfg.pdtype, g.device)
-    if norm is not None:
-        p["norm1"] = norm
+    tensor) receives the draws in place (the norms and the constant
+    leaves are returned new)."""
+    p = _norm_init(cfg, "norm1", g.device)
     p.update(_MIXER_INIT[spec.mixer](cfg, cfg.pdtype, g, out))
-    if norm is not None:
-        p["norm2"] = norm.clone()
+    p.update(_norm_init(cfg, "norm2", g.device))
     if spec.ffn == "moe":
         p.update(moe_init(cfg, cfg.pdtype, g, out))
     else:
         p.update(ffn_init(cfg.d_model, cfg.d_ff, cfg.ffn_kind, cfg.pdtype, g,
                           out))
+    if spec.cross_attn:
+        p.update(cross_init(cfg, cfg.pdtype, g, out))
+        p.update(_norm_init(cfg, "norm_cross", g.device))
     return p
 
 
@@ -136,14 +188,18 @@ def _group_init(cfg, repeat: int, pattern, g: torch.Generator
     """One group's stacked parameters, a dict per spec of the pattern, in
     the network's layer order.  Each stack is allocated once, after its
     first layer gives the shapes, and each of that layer's leaves is freed
-    as soon as its row 0 holds it; every later layer is drawn leaf by leaf
-    straight into its row."""
+    as soon as its row 0 holds it (a group of one layer keeps the drawn
+    leaves, viewed with the leading axis); every later layer is drawn leaf
+    by leaf straight into its row."""
     stacks = []
     for spec in pattern:
         first = _layer_init(cfg, spec, g)
         stack = {}
         for name in list(first):
             t = first.pop(name)
+            if repeat == 1:
+                stack[name] = t[None]
+                continue
             stack[name] = torch.empty((repeat, *t.shape), dtype=t.dtype,
                                       device=t.device)
             stack[name][0].copy_(t)
@@ -153,7 +209,7 @@ def _group_init(cfg, repeat: int, pattern, g: torch.Generator
         for spec, stack in zip(pattern, stacks):
             rows = {name: t[r] for name, t in stack.items()}
             for name, t in _layer_init(cfg, spec, g, rows).items():
-                if t is not rows[name]:     # the norms
+                if t is not rows[name]:     # the norms, the constants
                     rows[name].copy_(t)
     return stacks
 
@@ -171,9 +227,7 @@ def init(cfg, seed: int, device) -> dict:
     g.manual_seed(seed)
     params = {"embed": trunc_normal((cfg.vocab_size, cfg.d_model), cfg.pdtype,
                                     0.02, g)}
-    final_norm = make_norm(cfg.norm, cfg.d_model, cfg.pdtype, device)
-    if final_norm is not None:
-        params["final_norm"] = final_norm
+    params.update(_norm_init(cfg, "final_norm", device))
     if not cfg.tie_embeddings:
         params["head"] = trunc_normal((cfg.d_model, cfg.vocab_size),
                                       cfg.pdtype, 0.02, g)
@@ -183,6 +237,20 @@ def init(cfg, seed: int, device) -> dict:
             params["layers"] = stacks[0]
         else:
             params[f"group{gi}"] = {f"e{j}": st for j, st in enumerate(stacks)}
+    if cfg.mtp_depth:
+        d = cfg.d_model
+        # the MTP block mirrors the stack's last spec
+        block = _layer_init(cfg, cfg.stack[-1][1][0], g)
+        params["mtp"] = {
+            "proj": dense_init(2 * d, (2 * d, d), cfg.pdtype, g),
+            **_norm_init(cfg, "norm_h", device),
+            **_norm_init(cfg, "norm_e", device),
+            "block": {name: t[None] for name, t in block.items()},
+        }
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {"e0": _group_init(
+            cfg, cfg.encoder_layers, (ENCODER_SPEC,), g)[0]}
+        params.update(_norm_init(cfg, "enc_final_norm", device))
     return params
 
 
@@ -253,37 +321,76 @@ def _ffn(cfg, spec, p: dict, h: torch.Tensor, moe_groups: int | None = None,
     return ffn_apply(p, h, cfg.ffn_kind), None
 
 
-def forward(cfg, params: dict, batch: dict) -> tuple[torch.Tensor,
-                                                     torch.Tensor]:
-    """Full-sequence forward -> (logits [B,S,V], aux_loss).
+def _layer_apply(cfg, spec, p: dict, x: torch.Tensor, positions,
+                 mrope_positions, enc_out: torch.Tensor | None,
+                 with_aux: bool = True
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One full-sequence layer: the mixer, cross attention over
+    ``enc_out`` where the spec has it, the FFN; returns x and the MoE
+    aux loss (None for a dense FFN or without ``with_aux``)."""
+    h = _norm(cfg, p, "norm1", x)
+    if spec.mixer == "attn":
+        h = gqa_apply(p, h, positions, cfg, window=cfg.sliding_window,
+                      mrope_positions=mrope_positions)
+    elif spec.mixer == "mla":
+        h = mla_apply(p, h, positions, cfg, window=cfg.sliding_window)
+    elif spec.mixer == "mamba":
+        h = mamba_apply(p, h, cfg)
+    else:
+        h = rwkv6_apply(p, h, cfg)
+    x = x + h
+    if spec.cross_attn and enc_out is not None:
+        x = x + cross_apply(p, _norm(cfg, p, "norm_cross", x), enc_out, cfg)
+    h, aux = _ffn(cfg, spec, p, _norm(cfg, p, "norm2", x), with_aux=with_aux)
+    return x + h, aux
 
-    ``batch["tokens"]`` is [B,S] integer.  Products promote as the
-    reference's do (``layers.matmul``); the aux loss is the MoE layers'
-    summed load-balance loss, 0 for dense stacks.
-    """
+
+def _encode(cfg, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over the stub frame embeddings [B,T,D]: sinusoidal
+    positions added, non-causal attention (``_sdpa_blocked`` under
+    ``use_flash``, on any device: the flash kernel is causal only) and a
+    dense FFN a layer, then ``enc_final_norm``.  -> [B,T,D]."""
+    b, t, _ = frames.shape
+    x = (frames.to(cfg.cdtype)
+         + sinusoidal_positions(t, cfg.d_model, frames.device).to(cfg.cdtype))
+    positions = torch.arange(t, device=frames.device)[None].expand(b, t)
+    for p in layer_params(params["encoder"]["e0"]):
+        x = x + gqa_apply(p, _norm(cfg, p, "norm1", x), positions, cfg,
+                          causal=False)
+        x = x + ffn_apply(p, _norm(cfg, p, "norm2", x), cfg.ffn_kind)
+    return _norm(cfg, params, "enc_final_norm", x)
+
+
+def _hidden(cfg, params: dict, batch: dict) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """The normed hidden states before the head [B,S,D] and the aux
+    loss."""
+    enc_out = (_encode(cfg, params, batch["frames"])
+               if cfg.is_encoder_decoder else None)
     tokens = batch["tokens"].long()
     x = prefix_vision(cfg, params["embed"][tokens].to(cfg.cdtype), batch)
     b, s, _ = x.shape
     positions, mrope_positions = positions_of(cfg, batch, b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p in layers_of(cfg, params):
-        h = apply_norm(cfg.norm, p.get("norm1"), x)
-        if spec.mixer == "attn":
-            h = gqa_apply(p, h, positions, cfg, window=cfg.sliding_window,
-                          mrope_positions=mrope_positions)
-        elif spec.mixer == "mamba":
-            h = mamba_apply(p, h, cfg)
-        else:
-            h = rwkv6_apply(p, h, cfg)
-        x = x + h
-        h = apply_norm(cfg.norm, p.get("norm2"), x)
-        h, a = _ffn(cfg, spec, p, h)
-        x = x + h
+        x, a = _layer_apply(cfg, spec, p, x, positions, mrope_positions,
+                            enc_out)
         if a is not None:
             aux = aux + a
-    x = apply_norm(cfg.norm, params.get("final_norm"), x)
-    logits = matmul(x, head_of(cfg, params).to(cfg.cdtype))
-    return logits, aux
+    return _norm(cfg, params, "final_norm", x), aux
+
+
+def forward(cfg, params: dict, batch: dict) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Full-sequence forward -> (logits [B,S,V], aux_loss).
+
+    ``batch["tokens"]`` is [B,S] integer (and ``batch["frames"]`` [B,T,D]
+    for an encoder-decoder).  Products promote as the reference's do
+    (``layers.matmul``); the aux loss is the MoE layers' summed
+    load-balance loss, 0 for dense stacks.
+    """
+    x, aux = _hidden(cfg, params, batch)
+    return matmul(x, head_of(cfg, params).to(cfg.cdtype)), aux
 
 
 def _masked_nll(logits: torch.Tensor, labels: torch.Tensor
@@ -312,9 +419,43 @@ def per_example_ce(logits: torch.Tensor, labels: torch.Tensor
 
 
 def loss_fn(cfg, params: dict, batch: dict) -> torch.Tensor:
-    logits, aux = forward(cfg, params, batch)
-    return (_ce(text_logits(cfg, logits, batch), batch["labels"])
+    x, aux = _hidden(cfg, params, batch)
+    logits = matmul(x, head_of(cfg, params).to(cfg.cdtype))
+    loss = (_ce(text_logits(cfg, logits, batch), batch["labels"])
             + cfg.router_aux_coef * aux)
+    if cfg.mtp_depth:
+        loss = loss + cfg.mtp_loss_weight * _mtp_loss(cfg, params, batch, x)
+    return loss
+
+
+def _mtp_loss(cfg, params: dict, batch: dict, hidden: torch.Tensor
+              ) -> torch.Tensor:
+    """DeepSeek-V3's depth-1 multi-token prediction: one more block of the
+    stack's last spec predicts token t+2 from [h_t ; emb(tok_{t+1})], with
+    the embedding, final norm and head shared.  ``hidden`` is the
+    backbone's normed output (the reference runs the backbone again for
+    it; the values are the same).  The block's router aux is dropped, as
+    the reference drops it."""
+    emb = params["embed"]
+    tokens = batch["tokens"].long()
+    b, s = tokens.shape
+    nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+    e_next = emb[nxt].to(cfg.cdtype)
+    mtp = params["mtp"]
+    h = matmul(torch.cat([_norm(cfg, mtp, "norm_h", hidden),
+                          _norm(cfg, mtp, "norm_e", e_next)], dim=-1),
+               mtp["proj"])
+    positions = torch.arange(s, device=h.device)[None].expand(b, s)
+    block = {name: t[0] for name, t in mtp["block"].items()}
+    h, _ = _layer_apply(cfg, cfg.stack[-1][1][0], block, h, positions, None,
+                        None, with_aux=False)
+    h = _norm(cfg, params, "final_norm", h)
+    logits2 = matmul(h, head_of(cfg, params).to(cfg.cdtype))
+    labels = batch["labels"]
+    # position t predicts labels_{t+1} (token t+2); the tail is masked
+    labels2 = torch.cat([labels[:, 1:], torch.full_like(labels[:, -1:], -1)],
+                        dim=1)
+    return _ce(logits2, labels2)
 
 
 def per_example_loss_fn(cfg, params: dict, example: dict) -> torch.Tensor:
@@ -323,23 +464,31 @@ def per_example_loss_fn(cfg, params: dict, example: dict) -> torch.Tensor:
 
 
 def _state_key(spec) -> str:
-    """The key of a layer's cache in the reference's tree."""
-    return "attn" if spec.mixer == "attn" else "ssm"
+    """The key of a layer's mixer state in the reference's tree."""
+    return "attn" if spec.mixer in ("attn", "mla") else "ssm"
 
 
 def _layer_cache(cfg, spec, batch: int, max_len: int, device) -> dict:
     if spec.mixer == "attn":
         state = gqa_init_cache(cfg, batch, max_len, cfg.cdtype, device)
+    elif spec.mixer == "mla":
+        state = mla_init_cache(cfg, batch, max_len, cfg.cdtype, device)
     else:
         init_state = mamba_init_cache if spec.mixer == "mamba" else \
             rwkv6_init_cache
         state = init_state(cfg, batch, cfg.cdtype, device)
-    return {_state_key(spec): state}
+    c = {_state_key(spec): state}
+    if spec.cross_attn:
+        shape = (batch, cfg.n_audio_ctx, cfg.n_kv_heads, cfg.head_dim)
+        c["cross"] = {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+                      "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+    return c
 
 
 def init_cache(cfg, batch: int, max_len: int, device) -> dict:
-    """Zeros in the cache's layout (module docstring): K and V in the
-    compute dtype, the recurrent states in float32."""
+    """Zeros in the cache's layout (module docstring): K and V (MLA's
+    latents and rope keys, the cross K and V) in the compute dtype, the
+    recurrent states in float32."""
     check_supported(cfg)
     tree = {
         f"group{gi}": {
@@ -355,8 +504,8 @@ def init_cache(cfg, batch: int, max_len: int, device) -> dict:
 
 def cache_tree(cfg, cache: dict) -> dict:
     """The cache in the reference's nested layout, ``group{gi}`` /
-    ``e{j}`` / ``attn`` or ``ssm``, its tensors shared (a flat cache is
-    wrapped, a nested one returned as it is)."""
+    ``e{j}`` / ``attn`` or ``ssm`` (and ``cross``), its tensors shared (a
+    flat cache is wrapped, a nested one returned as it is)."""
     if is_flat(cfg):
         return {"group0": {"e0": {_state_key(cfg.stack[0][1][0]): cache}}}
     return cache
@@ -364,31 +513,42 @@ def cache_tree(cfg, cache: dict) -> dict:
 
 def layer_caches(cfg, cache: dict) -> list[dict]:
     """Each layer's cache, in the network's order, as views of ``cache``
-    (``{"attn": {"k", "v"}}`` or ``{"ssm": ...}``)."""
+    (``{"attn": {"k", "v"} or {"c", "kr"}}`` or ``{"ssm": ...}``, with
+    ``"cross"`` beside it in a cross-attention layer)."""
     tree = cache_tree(cfg, cache)
     return [tree_map(lambda t, r=r: t[r], tree[f"group{gi}"][f"e{j}"])
             for gi, (repeat, pattern) in enumerate(cfg.stack)
             for r in range(repeat) for j in range(len(pattern))]
 
 
+def _layer_decode(cfg, spec, p: dict, x: torch.Tensor, c: dict,
+                  positions: torch.Tensor, moe_groups: int) -> torch.Tensor:
+    h = _norm(cfg, p, "norm1", x)
+    if spec.mixer == "attn":
+        h, _ = gqa_decode(p, h, c["attn"], positions, cfg,
+                          window=cfg.sliding_window)
+    elif spec.mixer == "mla":
+        h, _ = mla_decode(p, h, c["attn"], positions, cfg,
+                          window=cfg.sliding_window)
+    elif spec.mixer == "mamba":
+        h, _ = mamba_decode(p, h, c["ssm"], cfg)
+    else:
+        h, _ = rwkv6_decode(p, h, c["ssm"], cfg)
+    x = x + h
+    if spec.cross_attn:
+        x = x + cross_decode(p, _norm(cfg, p, "norm_cross", x), c["cross"],
+                             cfg)
+    h = _norm(cfg, p, "norm2", x)
+    return x + _ffn(cfg, spec, p, h, moe_groups, with_aux=False)[0]
+
+
 def _decode(cfg, params: dict, cache: dict, tokens: torch.Tensor,
             positions: torch.Tensor, moe_groups: int
             ) -> tuple[torch.Tensor, dict]:
-    emb = params["embed"]
-    x = emb[tokens].to(cfg.cdtype)
+    x = params["embed"][tokens].to(cfg.cdtype)
     for (spec, p), c in zip(layers_of(cfg, params), layer_caches(cfg, cache)):
-        h = apply_norm(cfg.norm, p.get("norm1"), x)
-        if spec.mixer == "attn":
-            h, _ = gqa_decode(p, h, c["attn"], positions, cfg,
-                              window=cfg.sliding_window)
-        elif spec.mixer == "mamba":
-            h, _ = mamba_decode(p, h, c["ssm"], cfg)
-        else:
-            h, _ = rwkv6_decode(p, h, c["ssm"], cfg)
-        x = x + h
-        h = apply_norm(cfg.norm, p.get("norm2"), x)
-        x = x + _ffn(cfg, spec, p, h, moe_groups, with_aux=False)[0]
-    x = apply_norm(cfg.norm, params.get("final_norm"), x)
+        x = _layer_decode(cfg, spec, p, x, c, positions, moe_groups)
+    x = _norm(cfg, params, "final_norm", x)
     return matmul(x, head_of(cfg, params).to(cfg.cdtype)), cache
 
 

@@ -332,7 +332,8 @@ def test_use_flash_at_the_zoo_head_dims(dev, arch, h, kv, d, dtype):
     atol, rtol = (3e-5, 3e-5) if dtype == "float32" else (1e-3, 1e-2)
     for q, k, v, kw, out in seen:
         torch.testing.assert_close(out.float(), attention_plain(
-            q, k, v, **kw).float(), rtol=rtol, atol=atol)
+            q, k, v, causal=kw["causal"], window=kw["window"]).float(),
+            rtol=rtol, atol=atol)
     assert bool(torch.isfinite(logits).all())
     if dtype == "float32":
         with torch.no_grad():
@@ -542,3 +543,98 @@ def test_faithful_moe_rounds_repeat_bit_for_bit(dev):
     a, b = (tree_leaves(arms.run("decaph", model, silos, acfg).params)
             for _ in range(2))
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _cross_caches(cfg, params, cache, frames):
+    """Each decoder layer's cross K/V of one ``_encode``, into the cache."""
+    from repro_torch.models import attention as attn_lib
+
+    enc = tf._encode(cfg, params, frames)
+    for (_, p), c in zip(tf.layers_of(cfg, params), tf.layer_caches(cfg,
+                                                                    cache)):
+        for key, t in attn_lib.cross_kv_cache(p, enc, cfg).items():
+            c["cross"][key].copy_(t)
+
+
+def test_whisper_at_group_one_on_the_card_matches_the_cpu(dev):
+    """Whisper's smoke stack at the full config's heads (12 on 12 of 64,
+    group 1) in float32: the ``use_flash`` forward at a decoder length of
+    100 (not a multiple of the reference's 128-row block) launches the
+    kernel once per decoder layer and none for the non-causal encoder;
+    its logits, and a prefill and a ragged decode step over the cross
+    caches (one decode launch per layer and position), match the CPU at
+    1e-4."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_smoke_config("whisper-small").replace(
+        n_heads=12, n_kv_heads=12, head_dim=64, use_decode_kernel=True)
+    params = tf.init(cfg, 0, "cpu")
+    on_card = tree_map(lambda t: t.to(dev), params)
+    g = torch.Generator().manual_seed(4)
+    frames = 0.05 * torch.randn((2, cfg.n_audio_ctx, cfg.d_model), generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=g)
+    positions = torch.tensor([6, 3], dtype=torch.int32)
+    out = {}
+    for where, p in (("cpu", params), ("cuda", on_card)):
+        batch = {"tokens": tokens.to(where), "frames": frames.to(where)}
+        flash_ops.reset_launches()
+        with torch.no_grad():
+            logits, _ = tf.forward(cfg.replace(use_flash=True), p, batch)
+        if where == "cuda":
+            assert flash_ops.launches("simt_fp32") == cfg.n_layers == 2
+        cache = tf.init_cache(cfg, 2, 12, where)
+        _cross_caches(cfg, p, cache, batch["frames"])
+        first, cache = tf.prefill(cfg, p, cache, batch["tokens"][:, :6])
+        before = decode_ops.launches()
+        step, cache = tf.decode_step_positions(
+            cfg, p, cache, batch["tokens"][:, 6:7], positions.to(where))
+        if where == "cuda":
+            assert decode_ops.launches() == before + cfg.n_layers
+        out[where] = {"forward": logits, "prefill": first, "step": step,
+                      "cache": cache}
+    for a, b in zip(tree_leaves(out["cpu"]), tree_leaves(out["cuda"])):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4)
+
+
+def test_deepseek_decode_step_on_the_card_matches_the_cpu(dev):
+    """DeepSeek-V3's smoke stack (MLA, dense then MoE) in float32: a
+    prefill and a ragged per-row decode step on the card against the CPU
+    at 1e-4 (logits and the compressed cache), no decode kernel launch
+    (MLA has none), and the step again bit for bit under
+    ``set_sync_debug_mode("error")``."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_smoke_config("deepseek-v3-671b").replace(
+        use_decode_kernel=True)
+    params = tf.init(cfg, 0, "cpu")
+    on_card = tree_map(lambda t: t.to(dev), params)
+    g = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 5), generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 1), generator=g)
+    positions = torch.tensor([5, 2, 9], dtype=torch.int32)
+    out = {}
+    before = decode_ops.launches()
+    for where, p in (("cpu", params), ("cuda", on_card)):
+        cache = tf.init_cache(cfg, 3, 12, where)
+        first, cache = tf.prefill(cfg, p, cache, prompt.to(where))
+        logits, cache = tf.decode_step_positions(
+            cfg, p, cache, tokens.to(where), positions.to(where))
+        out[where] = {"prefill": first, "step": logits, "cache": cache}
+    assert decode_ops.launches() == before
+    for a, b in zip(tree_leaves(out["cpu"]), tree_leaves(out["cuda"])):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4)
+    snapshot = tree_map(torch.clone, out["cuda"]["cache"])
+    again_cache = tree_map(torch.clone, out["cuda"]["cache"])
+    tokens, positions = tokens.to(dev), positions.to(dev)
+    first, _ = tf.decode_step_positions(cfg, on_card, snapshot, tokens,
+                                        positions)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again, _ = tf.decode_step_positions(cfg, on_card, again_cache,
+                                            tokens, positions)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(first, again)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(snapshot),
+                                                 tree_leaves(again_cache)))

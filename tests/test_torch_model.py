@@ -8,6 +8,8 @@ held at 1e-4: the two frameworks order float32 sums differently, and over
 2 layers and a 512-way tied head those differences grow past 1e-5.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from repro_torch.configs.base import LayerSpec, param_count
 from repro_torch.convert import cache_to_numpy, params_from_jax
 from repro_torch.models import layers as tl
 from repro_torch.models import transformer as ttf
+from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 torch.set_num_threads(1)
 
@@ -125,14 +128,31 @@ def test_full_config_param_count():
 
 
 def test_unported_arch_and_mixer_raise():
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        get_config("deepseek-v3-671b")
+    """Every arch of the reference's zoo is ported, MLA and the
+    parametric ``layernorm`` among them (their configs the reference's,
+    ``check_supported`` taking them); an unknown arch id, mixer or norm
+    still raises, and so does serving Whisper's encoder-decoder."""
+    from repro.configs import get_config as jax_config
+
+    def fields(c):
+        return {**vars(c), "stack": [(r, [dataclasses.astuple(s) for s in p])
+                                     for r, p in c.stack]}
+
+    for arch in ("deepseek-v3-671b", "whisper-small"):
+        assert fields(get_config(arch)) == fields(jax_config(arch))
+        ttf.check_supported(get_config(arch))
     cfg = get_smoke_config("smollm-360m")
-    mla = cfg.replace(stack=((2, (LayerSpec("mla", "dense"),)),))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttf.init(mla, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttf.init(cfg.replace(norm="layernorm"), 0, "cpu")
+    ttf.check_supported(cfg.replace(stack=((2, (LayerSpec("mla", "dense"),)),)))
+    ttf.check_supported(cfg.replace(norm="layernorm"))
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("llama-9000")
+    with pytest.raises(NotImplementedError, match="repro_torch runs"):
+        ttf.init(cfg.replace(stack=((2, (LayerSpec("conv", "dense"),)),)), 0,
+                 "cpu")
+    with pytest.raises(NotImplementedError, match="repro_torch runs"):
+        ttf.init(cfg.replace(norm="batchnorm"), 0, "cpu")
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        ServeEngine(ServeConfig(arch="whisper-small", device="cpu"))
 
 
 def test_port_init_has_the_converted_layout(models):

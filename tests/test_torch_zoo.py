@@ -24,6 +24,7 @@ import torch
 from repro.checkpoint import save_checkpoint as jsave
 from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke_config
+from repro.configs import list_archs as jax_list_archs
 from repro.configs.base import active_param_count as jax_active_param_count
 from repro.configs.base import param_count as jax_param_count
 from repro.models import layers as jl
@@ -116,11 +117,25 @@ def test_registry_holds_the_zoo_and_refuses_the_rest():
         engine = tengine.ServeEngine(tengine.ServeConfig(arch=arch,
                                                          device="cpu"))
         assert engine.model_cfg.name == arch
+    # and so are the last two: their configs are the reference's and
+    # check_supported takes them; the engine serves DeepSeek-V3 and
+    # refuses Whisper's encoder-decoder, with the reference's words
     for arch in ("deepseek-v3-671b", "whisper-small"):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            get_config(arch)
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            tengine.ServeEngine(tengine.ServeConfig(arch=arch, device="cpu"))
+        assert arch in ARCHITECTURES
+        assert _fields(get_config(arch)) == _fields(jax_config(arch))
+        ttf.check_supported(get_config(arch))
+    assert set(ARCHITECTURES) == set(jax_list_archs())
+    engine = tengine.ServeEngine(tengine.ServeConfig(arch="deepseek-v3-671b",
+                                                     device="cpu"))
+    assert engine.model_cfg.name == "deepseek-v3-671b"
+    with pytest.raises(ValueError, match="encoder-decoder") as ours:
+        tengine.ServeEngine(tengine.ServeConfig(arch="whisper-small",
+                                                device="cpu"))
+    with pytest.raises(ValueError, match="encoder-decoder") as ref:
+        jengine.ServeEngine(jengine.ServeConfig(arch="whisper-small"))
+    assert str(ours.value) == str(ref.value)
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("llama-9000")
 
 
 @pytest.mark.parametrize("arch", ZOO)
