@@ -283,6 +283,35 @@ script exits non-zero, printing no result:
      same tokens without the kernel and decode against forward below
      5e-4; ``ServeEngine`` refusing the arch.  Phase 3 holds both kernels
      at Whisper's group 1, D 64 and phase 11 times them there.
+ 24. the launch layer — ``launch.steps.build_program`` for SmolLM-360M at
+     full width: the ``train_4k`` programs (ghost, per-example, no DP)
+     allocate nothing on the card and their meta ``args`` are a 256 x 4096
+     batch, ``tf.init``'s tree and dtypes and the AdamW state's; each runs
+     2 timed steps and a profiled one (device busy, idle share, top device
+     ops; the ghost program a fourth under ``analyze_program``) on a
+     ``make_lm_stream`` batch cut to 16 x 256 (256 x 4096 would need far
+     more than the card's 80 GB of ghost activations): finite losses, 225
+     ``ghost_norm`` launches a ghost step (7 a layer + the head) and none
+     otherwise, each step's wall beside ``dp_round_roofline`` of it on the
+     H100's constants and ``analyze_program``'s ATen FLOPs plus the Grams'
+     ``ghost_norm_flops``, and peak memory.  At sigma 0 with SGD (lr 0.05),
+     untied and in float32 (a tied head's norm is not the per-example
+     norm, and bf16 rounds the two paths' gradients apart), the ghost
+     program's update against the per-example program's within
+     2 lr C 1e-4 in L2 (phase 7's bound).  ``python -m
+     repro_torch.launch.train --arch smollm-360m --scale full --steps 3
+     --batch 8 --seq 256 --checkpoint`` (``main``, AdamW, per-example, on
+     the card by default): finite losses, ε a fresh ``RDPAccountant``'s bit
+     for bit, the checkpoint read back leaf for leaf.  The ``prefill_32k``
+     and ``decode_32k`` programs: no allocation, their meta ``args``
+     (cache [32, 128, 32768, 5, 64] bf16), then on a cut of 8 x 2048 the
+     prefill's logits bit for bit ``tf.forward``'s and 4 decode steps'
+     ``tf.decode_step``'s.  ``python -m repro_torch.launch.serve`` at its
+     defaults: n_layers ``decode_attention`` launches a position, the
+     same greedy tokens from ``batch_generate`` on the same engine and from
+     an engine on the same weights with ``decode_kernel=False`` (float32:
+     the model's plain attention, no launch); phase 3 holds the kernel at
+     this shape, 4 slots x 48.
 
 Artifacts and caches of phases 18–19 go into a temp dir under ``build/``.
 The next-to-last line is one JSON object ``{"kernels": [...]}``; the last
@@ -375,6 +404,13 @@ from repro_torch.scenarios import presets as presets_lib  # noqa: E402
 from repro_torch.scenarios.executor import n_params  # noqa: E402
 from repro_torch.population.backend import PopulationRunner  # noqa: E402
 from repro_torch.population.spec import PopulationSpec  # noqa: E402
+from repro_torch.configs import INPUT_SHAPES  # noqa: E402
+from repro_torch.data import make_lm_stream  # noqa: E402
+from repro_torch.launch import roofline as roofline_lib  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import steps as launch_steps  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.optim import get_optimizer  # noqa: E402
 
 ARCH = "smollm-360m"
 SEED = 0
@@ -431,6 +467,9 @@ KERNEL_CASES = [
     # 8 rows x 24 of its greedy decode and over 8 slots x 512
     (8, 24, 12, 12, 64, None, None),
     (8, 512, 12, 12, 64, None, None),
+    # launch.serve at its defaults (phase 24): SmolLM-360M smoke, 4 slots x
+    # 48 (32-token prompts + 16), 4 query heads on 2 of 32
+    (4, 48, 4, 2, 32, None, None),
 ]
 # decode_attention at the zoo's new head dims, timed beside the main shape:
 # Gemma-7B's and Nemotron-4-340B's attention at 8 slots x 512
@@ -4289,6 +4328,338 @@ def last_archs(dev, smi) -> dict:
     return out
 
 
+# -- 24. the launch layer --------------------------------------------------------
+
+# train_4k's 256 x 4096 batch cut to 16 x 256 for the runs (the ghost
+# activations of 256 x 4096 tokens need far more than the card's 80 GB);
+# prefill_32k and decode_32k cut to 8 sequences of 2048
+LAUNCH_TRAIN_CUT = (16, 256)
+LAUNCH_SERVE_CUT = (8, 2048)
+# SmolLM-360M's dense collector sites: q, k, v, o, up, gate, down a layer
+# and the head, each one ghost_norm launch a ghost step (one chunk)
+LAUNCH_GHOST_SITES = 7 * 32 + 1
+
+
+def _spec_signature(tree) -> dict:
+    """Each leaf's (shape, dtype) in the tree's nesting."""
+    return tree_map(lambda t: (tuple(t.shape), t.dtype), tree)
+
+
+def _all_meta(tree) -> bool:
+    return all(t.is_meta for t in tree_leaves(tree))
+
+
+def _build_without_allocating(dev, cfg, shape_name: str, **kw):
+    """``build_program`` at full width: the card's allocated bytes must not
+    move, and every spec must be a meta tensor."""
+    before = torch.cuda.memory_allocated(dev)
+    prog = launch_steps.build_program(cfg, shape_name, dev, **kw)
+    moved = torch.cuda.memory_allocated(dev) - before
+    specs = [prog.args[1].mu, prog.args[1].nu, prog.args[1].count,
+             *prog.args[::2]] if prog.kind == "train" else list(prog.args)
+    if moved or not all(_all_meta(t) for t in specs):
+        raise AssertionError(f"launch: {shape_name}'s program allocated "
+                             f"{moved} B on the card or holds a real tensor")
+    return prog
+
+
+def _lm_batch(cfg, dev, shape: tuple, step: int, seed: int = 1) -> dict:
+    rows, seq = shape
+    batch = make_lm_stream(cfg.vocab_size, seq, seed=seed).batch(step, rows)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _noise_generator(dev, step: int) -> torch.Generator:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(dp_lib.noise_seed(0, 1000 + step))
+    return gen
+
+
+def launch_train_programs(dev, smi) -> int:
+    """The train_4k programs at full width, their specs, 2 steps each on the
+    cut batch; returns the ghost program's ghost_norm launches."""
+    cfg = get_config(ARCH)
+    progs = {mode: _build_without_allocating(dev, cfg, "train_4k",
+                                             dp_mode=mode)
+             for mode in launch_steps.DP_MODES}
+    shape = INPUT_SHAPES["train_4k"]
+    want = (shape["global_batch"], shape["seq_len"])
+    params = tf.init(progs["ghost"].cfg, SEED, dev)
+    opt = get_optimizer(cfg.optimizer, cfg.lr)
+    state0 = opt.init(params)
+    for mode, prog in progs.items():
+        _, opt_specs, batch_specs = prog.args
+        ok = (_spec_signature(prog.args[0]) == _spec_signature(params)
+              and _spec_signature(opt_specs.mu) == _spec_signature(state0.mu)
+              and _spec_signature(opt_specs.nu) == _spec_signature(state0.nu)
+              and opt_specs.count.dtype == torch.int32
+              and _spec_signature(batch_specs) == {
+                  "tokens": (want, torch.int32),
+                  "labels": (want, torch.int32)})
+        if not ok:
+            raise AssertionError(f"launch: the {mode} program's specs are "
+                                 "not train_4k's batch, tf.init's tree and "
+                                 "AdamW's state")
+    say(f"launch specs: {ARCH} train_4k programs (ghost, per_example, none):"
+        f" batch {want[0]} x {want[1]}, {len(tree_leaves(params))} parameter"
+        f" leaves as tf.init's, AdamW state as opt.init's, all meta, 0 B "
+        f"allocated on {smi}")
+    del state0
+    batches = [_lm_batch(cfg, dev, LAUNCH_TRAIN_CUT, i) for i in range(3)]
+    ghost_launches = 0
+    for mode, prog in progs.items():
+        _free_card()
+        p, state = params, opt.init(params)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = ghost_ops.launches()
+        walls, losses = [], []
+        for i in range(2):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            p, state, m = prog.fn(p, state, batches[i],
+                                  _noise_generator(dev, i))
+            losses.append(float(m["loss"]))
+            walls.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = ghost_ops.launches() - before
+        want_launches = 2 * LAUNCH_GHOST_SITES if mode == "ghost" else 0
+        if launches != want_launches or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"launch: the {mode} program launched "
+                                 f"ghost_norm {launches} times (expected "
+                                 f"{want_launches}) or lost {losses}")
+        clipping = "ghost" if mode == "ghost" else "per_example"
+        roof = roofline_lib.dp_round_roofline(
+            prog.cfg, cohort=1, batch_per_silo=LAUNCH_TRAIN_CUT[0],
+            seq_len=LAUNCH_TRAIN_CUT[1], wall_seconds=walls[1] / 1e3,
+            clipping=clipping)
+        say(f"launch {mode} step: {ARCH} full width "
+            f"{str(prog.cfg.cdtype)[6:]}, AdamW, "
+            f"{LAUNCH_TRAIN_CUT[0]} x {LAUNCH_TRAIN_CUT[1]} tokens (cut from "
+            f"train_4k's {want[0]} x {want[1]}), step walls "
+            f"{walls[0]:.1f} / {walls[1]:.1f} ms, losses "
+            f"{losses[0]:.4f} / {losses[1]:.4f}, ghost_norm launches "
+            f"{launches} ({launches // 2} a step), peak allocated "
+            f"{peak / 1e9:.2f} GB; dp_round_roofline ({clipping}, H100 "
+            f"989 TFLOP/s, 3.35 TB/s): {roof['round_flops']:.4e} FLOP, "
+            f"bound {1e3 * roof['roofline_round_s']:.3f} ms "
+            f"({roof['roofline_bottleneck']}), {roof['pct_of_roofline']:.2f}"
+            f"% of the bf16 peak on {smi}")
+        before = ghost_ops.launches()
+        busy_us, by_kernel, prof_ms, _ = _device_profile(
+            lambda: prog.fn(p, state, batches[2], _noise_generator(dev, 2)))
+        launches += ghost_ops.launches() - before
+        if launches != 3 * want_launches // 2:
+            raise AssertionError(f"launch: the profiled {mode} step launched "
+                                 f"ghost_norm {launches} times in all")
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
+        idle = 100 * (1 - busy_us / 1e3 / prof_ms)
+        say(f"launch {mode} step profile: host {prof_ms:.1f} ms, device busy "
+            f"{busy_us / 1e3:.1f} ms, idle {idle:.1f}%; top device ops: "
+            + "; ".join(f"{name[:60]} {us / 1e3:.2f} ms" for name, us in top))
+        if mode == "ghost":
+            ghost_launches += launches
+            before = ghost_ops.launches()
+            report = roofline_lib.analyze_program(
+                prog.fn, p, state, batches[2], _noise_generator(dev, 2))
+            launches = ghost_ops.launches() - before
+            if launches != LAUNCH_GHOST_SITES:
+                raise AssertionError(f"launch: the analyzed ghost step "
+                                     f"launched ghost_norm {launches} times")
+            ghost_launches += launches
+            rows, seq = LAUNCH_TRAIN_CUT
+            grams = sum(roofline_lib.ghost_norm_flops(rows, seq, di, do)
+                        for di, do in
+                        roofline_lib._ghost_collector_sites(prog.cfg))
+            analytic = roofline_lib.dp_round_flops(
+                prog.cfg, cohort=1, batch_per_silo=rows, seq_len=seq)
+            top = ", ".join(f"{op} {n:.3e}" for op, n in
+                            list(report["flops_by_op"].items())[:3])
+            say(f"launch ghost analyze_program: {report['flops']:.4e} ATen "
+                f"FLOP ({top}) + {grams:.4e} FLOP of Grams in "
+                f"{launches} ghost_norm launches (ghost_norm_flops; the "
+                f"counter does not see the kernel) = "
+                f"{report['flops'] + grams:.4e}, against dp_round_flops "
+                f"{analytic:.4e}; peak allocated "
+                f"{report['peak_memory_bytes'] / 1e9:.2f} GB")
+            del report
+        del p, state
+    return ghost_launches
+
+
+def launch_ghost_vs_per_example(dev, smi) -> None:
+    """At sigma 0 the ghost program's SGD update against the per-example
+    program's from the same parameters and batch, in float32 with an
+    untied head (see phase 7 for the bound: a relative norm error e moves
+    each clipped gradient by at most C e, the update by lr C e)."""
+    _free_card()
+    cfg = get_config(ARCH).replace(
+        optimizer="sgd", lr=TRAIN["lr"], dp_sigma=0.0, dp_clip=TRAIN["clip"],
+        tie_embeddings=False, param_dtype="float32", compute_dtype="float32")
+    params = tf.init(cfg, SEED, dev)
+    batch = _lm_batch(cfg, dev, LAUNCH_TRAIN_CUT, 0)
+    updated = {}
+    for mode in ("ghost", "per_example"):
+        prog = launch_steps.build_program(cfg, "train_4k", dev, dp_mode=mode)
+        updated[mode] = prog.fn(params, (), batch,
+                                _noise_generator(dev, 0))[0]
+        _free_card()
+    diff, upd = _update_l2(params, updated["ghost"], updated["per_example"])
+    limit = 2 * TRAIN["lr"] * TRAIN["clip"] * 1e-4
+    ok = diff <= limit and upd > 0
+    say(f"launch ghost vs per_example: {ARCH} untied head, full width "
+        f"float32, SGD lr {TRAIN['lr']}, sigma 0, "
+        f"{LAUNCH_TRAIN_CUT[0]} x {LAUNCH_TRAIN_CUT[1]}: one step's update, "
+        f"L2 over the tree: per_example {upd:.6e}, |ghost - per_example| "
+        f"{diff:.3e} (limit {limit:g}) {'ok' if ok else 'FAIL'} on {smi}")
+    if not ok:
+        raise AssertionError("the ghost program's update and the "
+                             "per-example program's disagree")
+
+
+def launch_train_cli(dev, smi, tmp: Path) -> None:
+    """``python -m repro_torch.launch.train`` at full width on the card."""
+    _free_card()
+    path = str(tmp / "launch-train.ckpt")
+    t0 = time.perf_counter()
+    report = train_cli.main(["--arch", ARCH, "--scale", "full", "--steps",
+                             "3", "--batch", "8", "--seq", "256",
+                             "--checkpoint", path])
+    wall = time.perf_counter() - t0
+    acct = RDPAccountant(sampling_rate=min(1.0, 8 / (8 * 50)),
+                         noise_multiplier=0.8, delta=1e-5)
+    for _ in range(3):      # as launch.train steps it
+        acct.step()
+    tree, step, _ = load_checkpoint(path)
+    want = tree_map(lambda t: t.cpu(), params_to_tree(report["params"]))
+    same = step == 3 and _identical(tree_map(lambda t: t.cpu(), tree), want)
+    ok = (report["steps"] == 3 and all(map(math.isfinite, report["losses"]))
+          and report["epsilon"] == acct.epsilon() and same)
+    say(f"launch train CLI: {ARCH} --scale full --steps 3 --batch 8 --seq "
+        f"256 (AdamW, per-example, microbatch 4) on {smi}: losses "
+        f"{[round(x, 4) for x in report['losses']]}, eps {report['epsilon']}"
+        f" (a fresh RDPAccountant: {acct.epsilon()}), checkpoint "
+        f"{os.path.getsize(path)} B read back "
+        f"{'leaf for leaf' if same else 'WRONG'}, {wall:.2f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the train CLI's run is wrong")
+    del report, tree, want
+
+
+def launch_serve_programs(dev, smi) -> None:
+    """The prefill_32k and decode_32k programs at full width: specs, then
+    a cut of 8 x 2048 against tf.forward and tf.decode_step bit for bit."""
+    _free_card()
+    cfg = get_config(ARCH)
+    pre = _build_without_allocating(dev, cfg, "prefill_32k")
+    dec = _build_without_allocating(dev, cfg, "decode_32k")
+    params = tf.init(pre.cfg, SEED, dev)
+    b, s = (INPUT_SHAPES[n]["global_batch"] for n in ("prefill_32k",
+                                                       "decode_32k"))
+    seq = INPUT_SHAPES["decode_32k"]["seq_len"]
+    kv = (cfg.n_layers, s, seq, cfg.n_kv_heads, cfg.head_dim)
+    ok = (_spec_signature(pre.args[0]) == _spec_signature(params)
+          and _spec_signature(dec.args[0]) == _spec_signature(params)
+          and _spec_signature(pre.args[1]) == {
+              "tokens": ((b, INPUT_SHAPES["prefill_32k"]["seq_len"]),
+                         torch.int32)}
+          and _spec_signature(dec.args[1]) == {"k": (kv, cfg.cdtype),
+                                               "v": (kv, cfg.cdtype)}
+          and _spec_signature(dec.args[2]) == ((s, 1), torch.int32)
+          and _spec_signature(dec.args[3]) == ((), torch.int32))
+    if not ok:
+        raise AssertionError("launch: the prefill or decode program's specs "
+                             "are not their shapes'")
+    batch = _lm_batch(cfg, dev, LAUNCH_SERVE_CUT, 0, seed=2)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    logits = pre.fn(params, {"tokens": batch["tokens"]})
+    torch.cuda.synchronize(dev)
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    with torch.no_grad():
+        ref = tf.forward(pre.cfg, params, {"tokens": batch["tokens"]})[0]
+    same = torch.equal(logits, ref) and bool(torch.isfinite(logits).all())
+    del logits, ref
+    rows, length = LAUNCH_SERVE_CUT
+    caches = [tf.init_cache(dec.cfg, rows, length, dev) for _ in range(2)]
+    walls = []
+    for index in range(4):
+        tokens = batch["tokens"][:, index:index + 1]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        ours, caches[0] = dec.fn(params, caches[0], tokens, index)
+        torch.cuda.synchronize(dev)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        with torch.no_grad():
+            ref, caches[1] = tf.decode_step(dec.cfg, params, caches[1],
+                                            tokens, index)
+        same = same and torch.equal(ours, ref)
+    same = same and all(torch.equal(a, b) for a, b in
+                        zip(tree_leaves(caches[0]), tree_leaves(caches[1])))
+    say(f"launch prefill/decode programs: {ARCH} full width, specs "
+        f"prefill {b} x {INPUT_SHAPES['prefill_32k']['seq_len']}, decode "
+        f"cache {list(kv)} {str(cfg.cdtype)[6:]}, all meta, 0 B allocated; "
+        f"on {rows} x "
+        f"{length} (cut): prefill {prefill_ms:.1f} ms, decode steps "
+        f"{', '.join(f'{w:.2f}' for w in walls)} ms; logits and cache "
+        f"{'bit for bit' if same else 'NOT'} tf.forward's and "
+        f"tf.decode_step's on {smi}")
+    if not same:
+        raise AssertionError("a launch program's logits are not the model's")
+
+
+def launch_serve_cli(dev, smi) -> int:
+    """``python -m repro_torch.launch.serve`` at its defaults on the card;
+    returns its decode_attention launches."""
+    _free_card()
+    decode_ops.reset_launches()
+    out = serve_cli.main([])
+    launches = decode_ops.launches()
+    engine, prompts, tokens = out["engine"], out["prompts"], out["tokens"]
+    steps = engine.decode_steps
+    positions = steps + prompts.size
+    n_attn = _n_attention(engine.model_cfg)
+    again = batch_generate(engine, prompts, tokens.shape[1])
+    # the same weights and prompts through the model's plain attention
+    plain = ServeEngine(
+        dataclasses.replace(engine.cfg, decode_kernel=False),
+        model_cfg=engine.model_cfg.replace(use_decode_kernel=False),
+        params=engine.params)
+    before = decode_ops.launches()
+    plain_tokens = batch_generate(plain, prompts, tokens.shape[1])
+    plain_launches = decode_ops.launches() - before
+    same = np.array_equal(again, tokens)
+    same_plain = np.array_equal(plain_tokens, tokens)
+    ok = (launches == n_attn * positions and plain_launches == 0 and same
+          and same_plain)
+    say(f"launch serve CLI: defaults ({engine.model_cfg.name} smoke "
+        f"{str(engine.model_cfg.cdtype)[6:]}, {prompts.shape[0]} x "
+        f"{prompts.shape[1]} prompts + {tokens.shape[1]} greedy tokens): "
+        f"decode_attention launches {launches} = {n_attn} x ({steps} decode "
+        f"steps + {prompts.size} prefill positions), batch_generate's tokens "
+        f"again {'identical' if same else 'DIFFERENT'}, the plain attention's"
+        f" ({plain_launches} launches) "
+        f"{'identical' if same_plain else 'DIFFERENT'} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the serve CLI's run is wrong")
+    return launches
+
+
+def launch_layer(dev, smi) -> dict:
+    """Phase 24: the launch layer's programs and CLIs; each kernel's
+    launches on its main path."""
+    launches = {"ghost_norm": launch_train_programs(dev, smi)}
+    launch_ghost_vs_per_example(dev, smi)
+    with tempfile.TemporaryDirectory(prefix="launch-",
+                                     dir=ROOT / "build") as tmp:
+        launch_train_cli(dev, smi, Path(tmp))
+    launch_serve_programs(dev, smi)
+    launches["decode_attention"] = launch_serve_cli(dev, smi)
+    _free_card()
+    return launches
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -4399,6 +4770,10 @@ def main() -> int:
         launches[name] += n
         worst[name] = max(worst[name], err)
     say(f"phase 23: {time.perf_counter() - t23:.1f} s")
+    t24 = time.perf_counter()
+    for name, n in launch_layer(dev, smi).items():
+        launches[name] += n
+    say(f"phase 24: {time.perf_counter() - t24:.1f} s")
     lines = [{**k, "launches": launches[k["name"]],
               "max_abs_err": worst[k["name"]], **times[k["name"]]}
              for k in KERNELS]

@@ -6,7 +6,8 @@ tests use.  Every architecture of the reference's zoo is ported: the GQA
 decoders, ``rwkv6-3b`` (attention-free), ``jamba-v0.1-52b`` (Mamba and
 attention interleaved, MoE every other layer), ``deepseek-v3-671b`` (MLA,
 3 dense layers then 58 MoE) and ``whisper-small`` (encoder-decoder).  An
-unknown id raises.
+unknown id raises.  ``INPUT_SHAPES`` names the reference's four input
+shapes (``configs.shapes`` turns them into meta-tensor specs).
 """
 
 from __future__ import annotations
@@ -24,6 +25,13 @@ ARCHITECTURES = {
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "whisper-small": "repro_torch.configs.whisper_small",
+}
+
+INPUT_SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
 }
 
 

@@ -67,6 +67,7 @@ def per_example_clipped_grad_sum(
     clip_norm: float,
     microbatch_size: int = 16,
     mask: torch.Tensor | None = None,
+    accum_dtype: torch.dtype = torch.float32,
 ) -> tuple[Tree, torch.Tensor]:
     """Sum of per-example L2-clipped gradients (paper Algorithm 2, lines 1-3).
 
@@ -75,7 +76,9 @@ def per_example_clipped_grad_sum(
     axis).  ``mask`` ([B] of 0/1) drops the pad rows of a Poisson batch:
     they contribute nothing.  Returns (sum of clipped per-example grads,
     mean unclipped loss over real examples) =
-    (Σ_i clip_i·g_i·mask_i, Σ(loss·mask) / max(Σmask, 1)).
+    (Σ_i clip_i·g_i·mask_i, Σ(loss·mask) / max(Σmask, 1)); both sums
+    accumulate in ``accum_dtype`` (float32 unless asked), as the
+    reference's do.
     """
     params = tree_map(torch.Tensor.detach, params)
     batch_size = tree_leaves(batch)[0].shape[0]
@@ -102,13 +105,14 @@ def per_example_clipped_grad_sum(
         return g, loss * w
 
     per_micro = torch.func.vmap(one_example)
-    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
                                          device=p.device), params)
-    loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
+    loss_acc = torch.zeros((), dtype=accum_dtype, device=dev)
     for start in range(0, batch_size, m):
         mb = tree_map(lambda x: x[start:start + m], batch)
         g, losses = per_micro(mb, mask[start:start + m])
-        acc = tree_map(lambda a, x: a + torch.sum(x.float(), dim=0), acc, g)
+        acc = tree_map(lambda a, x: a + torch.sum(x.to(accum_dtype), dim=0),
+                       acc, g)
         loss_acc = loss_acc + torch.sum(losses)
     n_real = torch.clamp(torch.sum(mask), min=1.0)
     return acc, loss_acc / n_real

@@ -50,6 +50,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import (
     apply_rope,
     dense_init,
+    init_device,
     matmul,
     mrope_angles,
     rmsnorm,
@@ -61,7 +62,7 @@ from repro_torch.models.layers import (
 NEG_INF = -1e30
 
 
-def gqa_init(cfg, dtype: torch.dtype, generator: torch.Generator,
+def gqa_init(cfg, dtype: torch.dtype, generator: torch.Generator | None,
              out: dict | None = None) -> dict:
     """q, k, v and o projections; ``out`` (name -> tensor) receives the
     draws in place."""
@@ -271,7 +272,7 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
 # MLA (DeepSeek-V2/V3 multi-head latent attention)
 # ---------------------------------------------------------------------------
 
-def mla_init(cfg, dtype: torch.dtype, generator: torch.Generator,
+def mla_init(cfg, dtype: torch.dtype, generator: torch.Generator | None,
              out: dict | None = None) -> dict:
     """The down- and up-projections of q and of the KV latent, their
     RMSNorm scales (ones), the shared rope key's projection and ``wo``;
@@ -280,7 +281,7 @@ def mla_init(cfg, dtype: torch.dtype, generator: torch.Generator,
     qr, dc = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     o = out or {}
-    dev = generator.device
+    dev = init_device(generator)
     return {
         "w_dq": dense_init(d, (d, qr), dtype, generator, o.get("w_dq")),
         "q_norm_scale": torch.ones(qr, dtype=dtype, device=dev),
@@ -397,7 +398,7 @@ def mla_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
 CROSS = ("cross_wq", "cross_wk", "cross_wv", "cross_wo")
 
 
-def cross_init(cfg, dtype: torch.dtype, generator: torch.Generator,
+def cross_init(cfg, dtype: torch.dtype, generator: torch.Generator | None,
                out: dict | None = None) -> dict:
     """GQA's q, k, v and o projections under the ``cross_`` names."""
     o = out or {}

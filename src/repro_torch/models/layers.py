@@ -37,8 +37,15 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # Initializers
 # ---------------------------------------------------------------------------
 
+def init_device(generator: torch.Generator | None) -> torch.device:
+    """Where an initializer puts its leaves: the generator's device, or the
+    meta device when there is no generator (a shape-only init: every leaf
+    has its shape and dtype and no storage, and nothing is drawn)."""
+    return torch.device("meta") if generator is None else generator.device
+
+
 def trunc_normal(shape, dtype: torch.dtype, stddev: float,
-                 generator: torch.Generator,
+                 generator: torch.Generator | None,
                  out: torch.Tensor | None = None) -> torch.Tensor:
     """``stddev`` times a unit normal truncated to [-2, 2], drawn in float32.
 
@@ -47,8 +54,12 @@ def trunc_normal(shape, dtype: torch.dtype, stddev: float,
     renormalised (so the std is about 0.88 * stddev).  Not
     ``trunc_normal_(std=stddev)``, which truncates at +-2 in absolute units.
     Returns a new tensor of ``dtype``, or, given ``out``, casts the draw
-    into it and returns it.
+    into it and returns it.  Without a generator nothing is drawn: the
+    leaf is a meta tensor of the shape and dtype (``init_device``).
     """
+    if generator is None:
+        return (torch.empty(shape, dtype=dtype, device="meta")
+                if out is None else out)
     x = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(x, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=generator)
@@ -57,7 +68,7 @@ def trunc_normal(shape, dtype: torch.dtype, stddev: float,
 
 
 def dense_init(d_in: int, shape, dtype: torch.dtype,
-               generator: torch.Generator,
+               generator: torch.Generator | None,
                out: torch.Tensor | None = None) -> torch.Tensor:
     return trunc_normal(shape, dtype, 1.0 / math.sqrt(d_in), generator, out)
 
@@ -147,7 +158,8 @@ def _act(kind: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_init(d_model: int, d_ff: int, kind: str, dtype: torch.dtype,
-             generator: torch.Generator, out: dict | None = None) -> dict:
+             generator: torch.Generator | None, out: dict | None = None
+             ) -> dict:
     """kind: swiglu | geglu | relu2 | gelu (non-gated kinds: up+down only).
     ``out`` (name -> tensor) receives the draws in place."""
     if kind not in ("swiglu", "geglu", "relu2", "gelu"):

@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import dense_init, matmul
 
 
-def moe_init(cfg, dtype: torch.dtype, generator: torch.Generator,
+def moe_init(cfg, dtype: torch.dtype, generator: torch.Generator | None,
              out: dict | None = None) -> dict:
     """The router (always float32, as the reference's) and the experts'
     stacked weights [E, ...]; shared experts when the config has them.

@@ -36,7 +36,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, matmul
+from repro_torch.models.layers import dense_init, init_device, matmul
 
 
 def _draw(t: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
@@ -79,7 +79,7 @@ def _chunks(s: int, chunk: int) -> tuple[int, int]:
 # Mamba-1 (selective SSM)
 # ---------------------------------------------------------------------------
 
-def mamba_init(cfg, dtype: torch.dtype, generator: torch.Generator,
+def mamba_init(cfg, dtype: torch.dtype, generator: torch.Generator | None,
                out: dict | None = None) -> dict:
     """The reference's leaves and laws; ``out`` (name -> tensor) receives
     the draws in place."""
@@ -87,7 +87,7 @@ def mamba_init(cfg, dtype: torch.dtype, generator: torch.Generator,
     di = cfg.mamba_expand * d
     ds, dconv, dt_rank = cfg.mamba_d_state, cfg.mamba_d_conv, cfg.mamba_dt_rank
     o = out or {}
-    dev = generator.device
+    dev = init_device(generator)
     p = {
         "w_in": dense_init(d, (d, 2 * di), dtype, generator, o.get("w_in")),
         "conv_w": dense_init(dconv, (dconv, di), dtype, generator,
@@ -204,7 +204,7 @@ def mamba_decode(p: dict, x: torch.Tensor, cache: dict, cfg
 # RWKV6 (Finch): data-dependent decay linear attention
 # ---------------------------------------------------------------------------
 
-def rwkv6_init(cfg, dtype: torch.dtype, generator: torch.Generator,
+def rwkv6_init(cfg, dtype: torch.dtype, generator: torch.Generator | None,
                out: dict | None = None) -> dict:
     """The reference's leaves and laws; ``out`` (name -> tensor) receives
     the draws in place."""
@@ -213,7 +213,7 @@ def rwkv6_init(cfg, dtype: torch.dtype, generator: torch.Generator,
     nh = d // hs
     lora = cfg.rwkv_decay_lora
     o = out or {}
-    dev = generator.device
+    dev = init_device(generator)
     p = {name: dense_init(d, (d, d), dtype, generator, o.get(name))
          for name in ("w_r", "w_k", "w_v", "w_g", "w_o")}
     # the decay w_t = exp(-exp(w0 + tanh(x W_a) W_b))

@@ -10,6 +10,7 @@ prediction (``mtp_depth``); and Whisper's encoder-decoder (an encoder over
 stub frame embeddings, cross attention in every decoder layer).
 
   init(cfg, seed, device)                      -> params
+  param_specs(cfg)                             -> params on the meta device
   forward(cfg, params, batch)                  -> (logits [B,S,V], aux)
   loss_fn(cfg, params, batch)                  -> scalar (token-mean CE
                                                   + router_aux_coef * aux
@@ -88,6 +89,7 @@ from repro_torch.models.layers import (
     dense_init,
     ffn_apply,
     ffn_init,
+    init_device,
     make_norm,
     make_norm_bias,
     matmul,
@@ -164,14 +166,14 @@ def _norm(cfg, p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
     return apply_norm(cfg.norm, p.get(name), x, p.get(f"{name}_bias"))
 
 
-def _layer_init(cfg, spec, g: torch.Generator, out: dict | None = None
-                ) -> dict:
+def _layer_init(cfg, spec, g: torch.Generator | None,
+                out: dict | None = None) -> dict:
     """One layer's parameters, drawn in a fixed order; ``out`` (name ->
     tensor) receives the draws in place (the norms and the constant
     leaves are returned new)."""
-    p = _norm_init(cfg, "norm1", g.device)
+    p = _norm_init(cfg, "norm1", init_device(g))
     p.update(_MIXER_INIT[spec.mixer](cfg, cfg.pdtype, g, out))
-    p.update(_norm_init(cfg, "norm2", g.device))
+    p.update(_norm_init(cfg, "norm2", init_device(g)))
     if spec.ffn == "moe":
         p.update(moe_init(cfg, cfg.pdtype, g, out))
     else:
@@ -179,11 +181,11 @@ def _layer_init(cfg, spec, g: torch.Generator, out: dict | None = None
                           out))
     if spec.cross_attn:
         p.update(cross_init(cfg, cfg.pdtype, g, out))
-        p.update(_norm_init(cfg, "norm_cross", g.device))
+        p.update(_norm_init(cfg, "norm_cross", init_device(g)))
     return p
 
 
-def _group_init(cfg, repeat: int, pattern, g: torch.Generator
+def _group_init(cfg, repeat: int, pattern, g: torch.Generator | None
                 ) -> list[dict]:
     """One group's stacked parameters, a dict per spec of the pattern, in
     the network's layer order.  Each stack is allocated once, after its
@@ -222,9 +224,22 @@ def init(cfg, seed: int, device) -> dict:
     (``_group_init``), so the peak is the model plus one layer's float32
     leaf: a list of layers stacked at the end would hold the model twice.
     """
-    check_supported(cfg)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
+    return _init(cfg, g)
+
+
+def param_specs(cfg) -> dict:
+    """``init``'s tree on the meta device, the counterpart of the
+    reference's ``jax.eval_shape(init)``: the same code with no generator
+    (``layers.init_device``), so every leaf has ``init``'s shape and dtype
+    and nothing is drawn or allocated, at any width."""
+    return _init(cfg, None)
+
+
+def _init(cfg, g: torch.Generator | None) -> dict:
+    check_supported(cfg)
+    device = init_device(g)
     params = {"embed": trunc_normal((cfg.vocab_size, cfg.d_model), cfg.pdtype,
                                     0.02, g)}
     params.update(_norm_init(cfg, "final_norm", device))

@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_attention.ref import attention_plain
 from repro_torch.kernels.ghost_norm import ops as ghost_ops
 from repro_torch.models import transformer as tf
 from repro_torch.serve.federation import transformer_model
+from repro_torch.tree import tree_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -638,3 +639,60 @@ def test_deepseek_decode_step_on_the_card_matches_the_cpu(dev):
     assert torch.equal(first, again)
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(snapshot),
                                                  tree_leaves(again_cache)))
+
+
+def _update_l2(initial, a, b) -> tuple[float, float]:
+    """L2 of the two updates' difference and of b's update (float64)."""
+    diff = upd = 0.0
+    for p0, pa, pb in zip(tree_leaves(initial), tree_leaves(a),
+                          tree_leaves(b)):
+        ua, ub = pa.double() - p0.double(), pb.double() - p0.double()
+        diff += float((ua - ub).square().sum())
+        upd += float(ub.square().sum())
+    return diff ** 0.5, upd ** 0.5
+
+
+def test_launch_ghost_program_update_matches_per_example(dev):
+    """``build_program``'s ghost and per-example train programs at sigma
+    0, SGD lr 0.05, float32 with an untied head, SmolLM-360M's width at 4
+    layers on 8 x 128 tokens: one step's updates within 2 lr C 1e-4 in L2
+    (a relative norm error e moves the update by at most lr C e), and 29
+    ``ghost_norm`` launches (7 a layer + the head) for the ghost step."""
+    from repro_torch.configs.base import dense_stack
+    from repro_torch.data import make_lm_stream
+    from repro_torch.launch import steps
+
+    cfg = get_config("smollm-360m").replace(
+        n_layers=4, stack=dense_stack(4), optimizer="sgd", lr=0.05,
+        dp_sigma=0.0, dp_clip=1.0, tie_embeddings=False,
+        param_dtype="float32", compute_dtype="float32")
+    params = tf.init(cfg, 0, dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             make_lm_stream(cfg.vocab_size, 128, seed=1).batch(0, 8).items()}
+    out = {}
+    for mode in ("ghost", "per_example"):
+        prog = steps.build_program(cfg, "train_4k", dev, dp_mode=mode)
+        before = ghost_ops.launches()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        out[mode] = prog.fn(params, (), batch, gen)[0]
+        assert ghost_ops.launches() - before == (29 if mode == "ghost" else 0)
+    diff, upd = _update_l2(params, out["ghost"], out["per_example"])
+    assert upd > 0
+    assert diff <= 2 * 0.05 * 1.0 * 1e-4
+
+
+def test_launch_program_args_allocate_nothing_on_the_card(dev):
+    """Nemotron-4-340B's train_4k program (341 B parameters, their
+    Adafactor state and a 256 x 4096 batch) as meta tensors: the card's
+    allocated bytes do not move."""
+    from repro_torch.launch import steps
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    prog = steps.build_program(get_config("nemotron-4-340b"), "train_4k", dev)
+    assert torch.cuda.memory_allocated(dev) == before
+    params, opt_state, batch = prog.args
+    leaves = (tree_leaves(params) + tree_leaves(batch)
+              + [t for part in opt_state for t in tree_leaves(part)])
+    assert all(t.is_meta for t in leaves)
+    assert sum(t.numel() for t in tree_leaves(params)) > 340e9

@@ -14,9 +14,12 @@ calls only the public wrappers, whose signatures every version shares:
   * ``flash_attention`` in bfloat16 at B=8, S=L=2048, causal, at the
     evaluation heads (15 query heads on 5 KV heads of 64), at the same
     heads of 32 and at OLMo-1B's (16 on 16 of 128), each beside its bound
-    (4 D operations per causal pair at 989 TFLOP/s) and with its largest
-    |kernel - plain| on one input; and the flash kernels' registers,
-    shared memory and spills as ``ptxas -v`` reported them.
+    (4 D operations per causal pair at 989 TFLOP/s), its plain version's
+    time (``attention_plain``), one PyTorch library call's (causal
+    ``scaled_dot_product_attention`` with ``enable_gqa``, a yardstick the
+    port never calls) and its largest |kernel - plain| on one input; and
+    the flash kernels' registers, shared memory and spills as ``ptxas -v``
+    reported them.
 
 Each time is the median over calls that rotate through enough input copies
 that the L2 cache holds none of them, bracketed by CUDA events behind a
@@ -36,12 +39,16 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 L2_BYTES = 50 * 2**20
 DECODE_CASES = [(512, 64), (512, 511), (4096, 4095)]   # (L, index)
 HEADS = dict(h=15, kv=5, d=64)
 FLASH_HEADS = [(15, 5, 64), (15, 5, 32), (16, 16, 128)]   # (H, KV, D)
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+# SDPA against the plain version in bf16 before it is timed (it may round
+# P to bf16), as tests/test_kernels.py's limit
+LIBRARY_TOL = 3e-2
 
 
 def device_ms(fn, arg_sets, reps: int) -> float:
@@ -100,6 +107,13 @@ def time_decode(ops, dev) -> list[dict]:
     return out
 
 
+def _library_flash(q, k, v):
+    # one PyTorch call for the same function (a yardstick only)
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True).transpose(1, 2)
+
+
 def time_flash(ops, ref, dev) -> list[dict]:
     b, s = 8, 2048
     out = []
@@ -115,10 +129,18 @@ def time_flash(ops, ref, dev) -> list[dict]:
         q, k, v = sets[0]
         plain = ref.attention_plain(q, k, v, causal=True).float()
         diff = (call(q, k, v).float() - plain).abs()
+        lib_err = float((_library_flash(q, k, v).float() - plain).abs().max())
+        if not lib_err <= LIBRARY_TOL:
+            raise AssertionError(f"SDPA disagrees with the plain version by "
+                                 f"{lib_err:.3e}")
         ms = device_ms(call, sets, 20)
+        plain_ms = device_ms(
+            lambda q, k, v: ref.attention_plain(q, k, v, causal=True), sets, 6)
+        library_ms = device_ms(_library_flash, sets, 20)
         bound_ms = 4 * d * b * h * s * (s + 1) / 2 / BF16_OPS_PER_S * 1e3
         out.append({"kernel": "flash_attention", "S": s, "H": h, "KV": kv,
-                    "D": d, "ms": ms, "bound_ms": bound_ms,
+                    "D": d, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound_ms,
                     "max_abs_err": float(diff.max()),
                     "mean_abs_plain": float(plain.abs().mean()),
                     "within_atol_1e-3_rtol_1e-2": bool(
