@@ -312,8 +312,32 @@ script exits non-zero, printing no result:
      an engine on the same weights with ``decode_kernel=False`` (float32:
      the model's plain attention, no launch); phase 3 holds the kernel at
      this shape, 4 slots x 48.
+ 25. the last one-card modules — the PATE baseline against DeCaPH at
+     ``benchmarks/pate_ablation.py``'s settings at paper scale (GEMINI-like,
+     40,114 admissions, 8 hospitals, 80/20 split, the public pool a quarter
+     of the test split; MLP 436-64-16-1, batch 128, lr 0.5, sigma for ε 4,
+     no SecAgg; 60 rounds, cut from 400): ``run_decaph`` (ε the
+     accountant's) and ``run_pate`` at GNMax sigma 2 and 8 (ε
+     ``rdp_to_eps_delta`` of |pool| x α / (2 sigma²) bit for bit), each
+     run's held-out AUROC, ε and wall, PATE's split into its teachers,
+     labelling and student spans.  The deprecated ``run_decaph`` on phase
+     6's SmolLM-360M (untied head, full width, 4 hospitals x 64 x 256
+     tokens, ghost clipping, sigma 1.0, 2 rounds): 225 ``ghost_norm``
+     launches per participant and round (added to the kernels line), bit
+     for bit ``arms.run("decaph", ...)`` with ``fused_rounds=False`` and
+     with the fused default.  The deprecated ``simulate_decaph`` on phase
+     16's pancreas with dropout-robust SecAgg and phase 16's dropout trace,
+     built through ``scenario_from_trace``: bit for bit phase 16's
+     ``arms.run(..., backend="sim")``, ``SimTiming`` included, and each
+     legacy property (``wall_clock``, ``recoveries``, ...) its ``timing``
+     field.  ``python -m repro_torch.run --arm decaph --obs DIR`` on the
+     card, then ``python -m repro_torch.obs``: ``--validate`` exits 0 and
+     1 on a copy with one ledger entry's ε halved, ``--to-chrome`` writes
+     a trace ``validate_chrome_trace`` accepts, and the summary's
+     per-hospital ε is the run's (the accountant's).
 
-Artifacts and caches of phases 18–19 go into a temp dir under ``build/``.
+Artifacts and caches of phases 18–19 and 25 go into temp dirs under
+``build/``.
 The next-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
 """
@@ -330,11 +354,13 @@ import math
 import os
 import pstats
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -369,7 +395,7 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve.federation import token_silos, transformer_model  # noqa: E402
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.convert import params_from_tree, params_to_tree  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import tree_device, tree_leaves, tree_map  # noqa: E402
 from repro_torch.serve.engine import ServeConfig, ServeEngine, batch_generate  # noqa: E402
 from repro_torch.serve.handoff import (  # noqa: E402
     CheckpointPublisher,
@@ -411,6 +437,15 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import steps as launch_steps  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.optim import get_optimizer  # noqa: E402
+from repro_torch.core import federation  # noqa: E402
+from repro_torch.core.accountant import (  # noqa: E402
+    DEFAULT_ORDERS,
+    rdp_to_eps_delta,
+    sigma_for_epsilon,
+)
+from repro_torch.data.partition import train_test_split_silos  # noqa: E402
+from repro_torch.obs.convert import validate_chrome_trace  # noqa: E402
+from repro_torch.sim import protocols  # noqa: E402
 
 ARCH = "smollm-360m"
 SEED = 0
@@ -2707,11 +2742,12 @@ def _timing(report) -> str:
             f"rounds, {t.events} events")
 
 
-def sim_path(dev, smi, pancreas) -> None:
+def sim_path(dev, smi, pancreas) -> dict:
     """Phase 16: phase 13's pancreas DeCaPH on ``sim`` with SecAgg — on a
     clean heterogeneous trace bit for bit phase 13's ``ideal`` run, then
     with a hospital dropping out during round 1's upload: recovered,
-    topped up, within the fixed-point limit, ε the accountant's."""
+    topped up, within the fixed-point limit, ε the accountant's.  Returns
+    the dropout run's node trace and report (phase 25 replays them)."""
     case, model, silos = PANCREAS, pancreas["model"], pancreas["silos"]
     h = len(silos)
     cfg = _tabular_cfg(case)
@@ -2763,6 +2799,8 @@ def sim_path(dev, smi, pancreas) -> None:
             report.epsilon != acct.epsilon():
         raise AssertionError(f"{report.rounds_completed} rounds, ε "
                              f"{report.epsilon} != {acct.epsilon()}")
+    return {"model": model, "silos": silos, "cfg": cfg, "trace": trace,
+            "report": report}
 
 
 # -- 17. the privacy audit (Fig. 5): LiRA on FL and DP targets -------------------
@@ -4660,6 +4698,291 @@ def launch_layer(dev, smi) -> dict:
     return launches
 
 
+# -- 25. the last one-card modules: PATE, the deprecated shims, the obs CLI -----
+
+# benchmarks/pate_ablation.py at paper scale (its fast=False data), with its
+# 400 rounds cut to 60
+PATE = dict(n_total=40114, test_frac=0.2, sizes=[436, 64, 16, 1], batch=128,
+            lr=0.5, target_eps=4.0, clip=1.0, microbatch=16, rounds=60,
+            paper_rounds=400, gnmax_sigmas=(2.0, 8.0))
+SHIM_LM = dict(TRAIN, rounds=2)   # phase 6's model, silos, batch and sigma
+LEGACY_TIMING = ("wall_clock", "bytes_on_wire", "dropout_events",
+                 "recoveries", "lost_rounds", "events", "noise_topups")
+# python -m repro_torch.run's defaults: decaph on 5 GEMINI-like hospitals
+# (1200 admissions asked for, 32 features), batch 64, sigma 0.8, 10 rounds
+OBS_RUN = dict(hospitals=5, examples=1200, features=32, batch=64, sigma=0.8,
+               rounds=10)
+
+
+def _quiet(fn, *args, **kw):
+    """Call a deprecated shim without its DeprecationWarning."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return fn(*args, **kw)
+
+
+def _auroc(model, params, x, y) -> float:
+    with torch.no_grad():
+        s = model.predict_fn(params, torch.from_numpy(x).to(
+            tree_device(params)))
+    return mia_lib.auroc(s.cpu().numpy(), y.astype(np.int32))
+
+
+def _same_run(a, b) -> bool:
+    """ε, logs, rounds and every parameter leaf bit for bit."""
+    return a.epsilon == b.epsilon and \
+        a.rounds_completed == b.rounds_completed and \
+        [dataclasses.astuple(l) for l in a.logs] == \
+        [dataclasses.astuple(l) for l in b.logs] and all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(a.params),
+                                              tree_leaves(b.params)))
+
+
+def pate_vs_decaph(dev, smi) -> None:
+    """Phase 25a: ``run_pate`` at GNMax sigma 2 and 8 against DeCaPH at
+    ``benchmarks/pate_ablation.py``'s settings."""
+    case = PATE
+    silos = arms.normalize_participants(
+        make_gemini_like(seed=SEED, n_total=case["n_total"]))
+    train, tx, ty = train_test_split_silos(silos, case["test_frac"], seed=SEED)
+    n_pub = len(tx) // 4   # the public pool: a quarter of the test split
+    pub_x, tx_eval, ty_eval = tx[:n_pub], tx[n_pub:], ty[n_pub:]
+    model = tabular.make_mlp_classifier(case["sizes"], "binary",
+                                        device=str(dev))
+    n_train = sum(len(p) for p in train)
+    rate = case["batch"] / n_train
+    sigma = sigma_for_epsilon(rate, case["rounds"], case["target_eps"], 1e-5)
+    cfg = arms.ArmConfig(
+        rounds=case["rounds"], batch_size=case["batch"], lr=case["lr"],
+        seed=SEED, use_secagg=False, epsilon_budget=case["target_eps"],
+        dp=DPConfig(clip_norm=case["clip"], noise_multiplier=sigma,
+                    microbatch_size=case["microbatch"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dc = _quiet(federation.run_decaph, model, train, cfg)
+    torch.cuda.synchronize()
+    dc_wall = time.perf_counter() - t0
+    acct = RDPAccountant(sampling_rate=rate, noise_multiplier=sigma,
+                         delta=cfg.dp.delta)
+    acct.step(case["rounds"])
+    if dc.rounds_completed != case["rounds"] or dc.epsilon != acct.epsilon() \
+            or not all(bool(torch.isfinite(p).all())
+                       for p in tree_leaves(dc.params)):
+        raise AssertionError(f"decaph: {dc.rounds_completed} rounds, ε "
+                             f"{dc.epsilon} (accountant {acct.epsilon()})")
+    auc_dc = _auroc(model, dc.params, tx_eval, ty_eval)
+    say(f"pate vs decaph: GEMINI-like, {case['n_total']} admissions, "
+        f"{len(train)} hospitals, 80/20 split ({n_train} train; public pool "
+        f"{n_pub} = a quarter of the test split, {len(tx_eval)} held out), "
+        f"MLP {'-'.join(map(str, case['sizes']))}, batch {case['batch']}, lr "
+        f"{case['lr']}, sigma {sigma:.4f} for ε {case['target_eps']}, "
+        f"{case['rounds']} rounds (cut from {case['paper_rounds']}), no "
+        f"SecAgg, on {smi}")
+    say(f"pate vs decaph: decaph (run_decaph): AUROC {auc_dc:.4f}, ε "
+        f"{dc.epsilon:.4f} (accountant {acct.epsilon():.4f}), wall "
+        f"{dc_wall:.2f} s")
+    orders = np.asarray(DEFAULT_ORDERS)
+    pates = []
+    for gsigma in case["gnmax_sigmas"]:
+        with obs.recording() as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = federation.run_pate(model, train, cfg, public_x=pub_x,
+                                      n_classes=2, gnmax_sigma=gsigma)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            spans = rec.span_totals()
+        eps, _ = rdp_to_eps_delta(n_pub * orders / (2.0 * gsigma**2), orders,
+                                  cfg.dp.delta)
+        if res.epsilon != eps or (res.arm, res.backend) != ("pate", "ideal") \
+                or res.rounds_completed != case["rounds"] or not all(
+                    bool(torch.isfinite(p).all())
+                    for p in tree_leaves(res.params)):
+            raise AssertionError(f"pate sigma {gsigma}: ε {res.epsilon} != "
+                                 f"{eps}, or {res.arm}/{res.backend}/"
+                                 f"{res.rounds_completed}, or non-finite")
+        auc = _auroc(model, res.params, tx_eval, ty_eval)
+        ms = {k: 1e3 * spans[f"pate.{k}"][1]
+              for k in ("teachers", "label", "student")}
+        pates.append((auc, res.epsilon))
+        say(f"pate vs decaph: pate GNMax sigma {gsigma:g}: AUROC {auc:.4f}, ε "
+            f"{res.epsilon:.4f} (= rdp_to_eps_delta of {n_pub} x α / "
+            f"(2 x {gsigma:g}^2), bit for bit), wall {wall:.2f} s: "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items()))
+    supported = all(auc_dc > a or e > dc.epsilon for a, e in pates)
+    say(f"pate vs decaph: the paper's argument (DeCaPH's AUROC above PATE's "
+        f"or PATE's ε above DeCaPH's, at each sigma): {supported} (printed "
+        f"only)")
+
+
+def shim_decaph_lm(dev, smi) -> int:
+    """Phase 25b: the deprecated ``run_decaph`` through ``ghost_norm`` on
+    phase 6's SmolLM-360M, bit for bit ``arms.run`` per participant and
+    fused; returns the three runs' ``ghost_norm`` launches."""
+    mcfg = get_config(ARCH).replace(tie_embeddings=False)
+    model = transformer_model(mcfg, device=str(dev))
+    silos = _silos(mcfg)
+    cfg = _train_cfg(SHIM_LM["rounds"], SHIM_LM["sigma"])
+    per_participant = 7 * mcfg.n_layers + 1
+    expected = per_participant * SHIM_LM["hospitals"] * SHIM_LM["rounds"]
+    runs = [
+        ("run_decaph", lambda: _quiet(federation.run_decaph, model, silos,
+                                      cfg)),
+        ("arms.run fused_rounds=False", lambda: arms.run(
+            "decaph", model, silos,
+            dataclasses.replace(cfg, fused_rounds=False))),
+        ("arms.run fused", lambda: arms.run("decaph", model, silos, cfg)),
+    ]
+    reports, total, parts = [], 0, []
+    for what, fn in runs:
+        ghost_ops.reset_launches()
+        reset_jit_dispatches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, calls = ghost_ops.launches(), jit_dispatches()
+        if n != expected:
+            raise AssertionError(f"{what}: ghost_norm launched {n} times, "
+                                 f"expected {per_participant} x "
+                                 f"{SHIM_LM['hospitals']} x "
+                                 f"{SHIM_LM['rounds']} = {expected}")
+        reports.append(rep)
+        total += n
+        parts.append(f"{what}: {n} launches, {calls} program calls, wall "
+                     f"{wall:.2f} s")
+    acct = RDPAccountant(sampling_rate=SHIM_LM["batch_size"]
+                         / (SHIM_LM["hospitals"] * SHIM_LM["n_per"]),
+                         noise_multiplier=SHIM_LM["sigma"],
+                         delta=cfg.dp.delta)
+    acct.step(SHIM_LM["rounds"])
+    same = [_same_run(reports[0], r) for r in reports[1:]]
+    say(f"shim run_decaph: {ARCH} untied head, full width, "
+        f"{SHIM_LM['hospitals']} hospitals x {SHIM_LM['n_per']} x "
+        f"{SHIM_LM['seq_len']} tokens, batch {SHIM_LM['batch_size']}, sigma "
+        f"{SHIM_LM['sigma']}, ghost clipping, {SHIM_LM['rounds']} rounds, on "
+        f"{smi}: losses {[round(l.loss, 4) for l in reports[0].logs]}, ε "
+        f"{reports[0].epsilon:.6f} (accountant {acct.epsilon():.6f}); "
+        + "; ".join(parts) + f"; bit for bit the per-participant and the "
+        f"fused arms.run: {same}")
+    if not all(same) or reports[0].epsilon != acct.epsilon() or \
+            reports[0].rounds_completed != SHIM_LM["rounds"]:
+        raise AssertionError("the run_decaph shim is not arms.run bit for "
+                             "bit, or its ε is not the accountant's")
+    return total
+
+
+def shim_simulate_decaph(smi, dropout: dict) -> None:
+    """Phase 25c: ``simulate_decaph`` on phase 16's pancreas and dropout
+    trace through ``scenario_from_trace``, bit for bit phase 16's
+    ``arms.run(..., backend="sim")``, ``SimTiming`` included."""
+    nodes, topo = protocols.scenario_from_trace(
+        {"nodes": dropout["trace"], "topology": {"kind": "full"}})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = _quiet(protocols.simulate_decaph, dropout["model"],
+                 dropout["silos"], nodes, topo, dropout["cfg"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ref = dropout["report"]
+    legacy = {k: getattr(rep, k) for k in LEGACY_TIMING}
+    same = _same_run(rep, ref) and rep.timing == ref.timing
+    say(f"shim simulate_decaph: pancreas MLP, {len(dropout['silos'])} "
+        f"hospitals, dropout-robust SecAgg, phase 16's dropout trace through "
+        f"scenario_from_trace (topology {topo.name}), on {smi}: "
+        f"{_timing(rep)}; bit for bit phase 16's arms.run(backend='sim'), "
+        f"SimTiming included: {same}; legacy properties {legacy}; host wall "
+        f"{wall:.2f} s")
+    if not same or legacy != {k: getattr(rep.timing, k)
+                              for k in LEGACY_TIMING}:
+        raise AssertionError("simulate_decaph is not arms.run on sim bit for "
+                             "bit, or a legacy property is not its timing")
+
+
+def _python(*argv, **kw) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, *argv], capture_output=True,
+                          text=True, cwd=ROOT, env=env, timeout=600, **kw)
+
+
+def obs_cli_path(smi, tmp: Path) -> None:
+    """Phase 25d: ``python -m repro_torch.run --obs DIR`` on the card, then
+    ``python -m repro_torch.obs`` on its export: ``--validate`` 0, a
+    tampered copy 1, ``--to-chrome`` a valid trace, the summary's ε the
+    run's."""
+    out = tmp / "obs"
+    t0 = time.perf_counter()
+    run = _python("-m", "repro_torch.run", "--arm", "decaph", "--obs",
+                  str(out))
+    run_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.run --obs: rc "
+                             f"{run.returncode}\n{run.stderr[-2000:]}")
+    n = sum(len(p) for p in make_gemini_like(
+        seed=SEED, n_total=OBS_RUN["examples"], n_silos=OBS_RUN["hospitals"],
+        n_features=OBS_RUN["features"]))
+    acct = RDPAccountant(sampling_rate=OBS_RUN["batch"] / n,
+                         noise_multiplier=OBS_RUN["sigma"], delta=1e-5)
+    acct.step(OBS_RUN["rounds"])
+    line = [ln for ln in run.stdout.splitlines() if ln.startswith("decaph")]
+    entries = obs.read_entries(out / obs.LEDGER_FILE)
+    if obs.per_hospital_epsilon(entries) != {
+            h: acct.epsilon() for h in range(OBS_RUN["hospitals"])} or \
+            f"eps={acct.epsilon():8.3f}" not in line[0]:
+        raise AssertionError(f"the ledger's ε {obs.per_hospital_epsilon(entries)}"
+                             f" or the run's line {line} is not the "
+                             f"accountant's {acct.epsilon()}")
+    t0 = time.perf_counter()
+    valid = _python("-m", "repro_torch.obs", "--validate", str(out))
+    summary = _python("-m", "repro_torch.obs", str(out))
+    bad = tmp / "tampered"
+    shutil.copytree(out, bad)
+    rows = (bad / obs.LEDGER_FILE).read_text().splitlines()
+    row = json.loads(rows[3])
+    row["eps"] = row["eps"] / 2          # under-report one hospital's ε
+    rows[3] = json.dumps(row, sort_keys=True)
+    (bad / obs.LEDGER_FILE).write_text("\n".join(rows) + "\n")
+    tampered = _python("-m", "repro_torch.obs", "--validate", str(bad))
+    chrome = _python("-m", "repro_torch.obs", "--to-chrome",
+                     str(out / obs.EVENTS_FILE), "--out",
+                     str(tmp / "chrome.json"))
+    cli_s = time.perf_counter() - t0
+    trace = validate_chrome_trace(tmp / "chrome.json")
+    want = [f"hospital {h:<4} eps={acct.epsilon():10.4f}"
+            for h in range(OBS_RUN["hospitals"])]
+    say(f"obs cli: python -m repro_torch.run --arm decaph --obs on {smi}: "
+        f"{line[0].strip()} ({run_s:.1f} s); python -m repro_torch.obs "
+        f"--validate rc {valid.returncode} ({valid.stdout.count(': OK')} "
+        f"artifacts OK), tampered copy rc {tampered.returncode} "
+        f"({tampered.stderr.strip().splitlines()[-1][-80:]}), --to-chrome rc "
+        f"{chrome.returncode} ({trace['trace_events']} trace events), summary "
+        f"rc {summary.returncode}, per-hospital ε {acct.epsilon():.4f} the "
+        f"run's: {all(w in summary.stdout for w in want)} ({cli_s:.1f} s for "
+        f"the four CLI calls)")
+    if (valid.returncode, tampered.returncode, chrome.returncode,
+            summary.returncode) != (0, 1, 0, 0) or \
+            valid.stdout.count(": OK") != 3 or \
+            not all(w in summary.stdout for w in want):
+        raise AssertionError(f"obs cli: validate {valid.returncode}, "
+                             f"tampered {tampered.returncode}, chrome "
+                             f"{chrome.returncode}, summary "
+                             f"{summary.returncode}\n{summary.stdout}")
+
+
+def last_modules(dev, smi, dropout: dict) -> dict:
+    """Phase 25: PATE against DeCaPH, the deprecated shims, the obs CLI;
+    each kernel's launches on its main path."""
+    pate_vs_decaph(dev, smi)
+    torch.cuda.empty_cache()
+    launches = {"ghost_norm": shim_decaph_lm(dev, smi)}
+    torch.cuda.empty_cache()
+    shim_simulate_decaph(smi, dropout)
+    with tempfile.TemporaryDirectory(prefix="obs-", dir=ROOT / "build") as tmp:
+        obs_cli_path(smi, Path(tmp))
+    return launches
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -4727,7 +5050,7 @@ def main() -> int:
                                                    pancreas["gemini"])
     lap(t0, "phase 15")
     torch.cuda.empty_cache()
-    sim_path(dev, smi, pancreas)
+    dropout = sim_path(dev, smi, pancreas)
     lap(t0, "phase 16")
     del pancreas
     torch.cuda.empty_cache()
@@ -4774,6 +5097,11 @@ def main() -> int:
     for name, n in launch_layer(dev, smi).items():
         launches[name] += n
     say(f"phase 24: {time.perf_counter() - t24:.1f} s")
+    t25 = time.perf_counter()
+    for name, n in last_modules(dev, smi, dropout).items():
+        launches[name] += n
+    del dropout
+    say(f"phase 25: {time.perf_counter() - t25:.1f} s")
     lines = [{**k, "launches": launches[k["name"]],
               "max_abs_err": worst[k["name"]], **times[k["name"]]}
              for k in KERNELS]

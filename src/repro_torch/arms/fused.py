@@ -166,6 +166,7 @@ def _host_rows(payloads: Sequence[Tree], losses: torch.Tensor | None
                      else [losses[s].detach().float().reshape(1)]))
         for s, tree in enumerate(payloads)
     ])
+    # repro: allow[host-sync-hygiene] the round's one sync, on build_contributions' SecAgg path: the cohort's payloads and losses in one copy
     host = rows.cpu().numpy()
     views = []
     for row in host:

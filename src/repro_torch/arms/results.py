@@ -3,9 +3,13 @@
 Counterpart of ``repro.arms.results``: training outputs (params, logs,
 epsilon) are always present; the systems story (simulated wall-clock,
 bytes on the wire, dropout bookkeeping) lives in ``SimTiming``, which only
-the simulated-time backend fills in.  The reference's legacy spellings
-(``per_client_params``, ``wall_clock``, ...) come with its deprecated
-shims (ROADMAP.md, Queue 1).
+the simulated-time backend fills in.
+
+The legacy names remain as aliases where the deprecated shims define
+them (``core.federation.RunResult`` and ``sim.protocols.ArmReport`` are
+``RunReport``), and the legacy attribute spellings (``per_client_params``,
+``wall_clock``, ``bytes_on_wire``, ...) are properties, so pre-refactor
+callers keep working unchanged.
 """
 
 from __future__ import annotations
@@ -56,6 +60,42 @@ class RunReport:
     backend: str = ""
     per_node_params: list[Any] | None = None
     timing: SimTiming | None = None
+
+    # -- legacy RunResult spelling -------------------------------------------
+
+    @property
+    def per_client_params(self) -> list[Any] | None:
+        return self.per_node_params
+
+    # -- legacy ArmReport spellings (0 when there is no timing section) ------
+
+    @property
+    def wall_clock(self) -> float:
+        return self.timing.wall_clock if self.timing else 0.0
+
+    @property
+    def bytes_on_wire(self) -> float:
+        return self.timing.bytes_on_wire if self.timing else 0.0
+
+    @property
+    def dropout_events(self) -> int:
+        return self.timing.dropout_events if self.timing else 0
+
+    @property
+    def recoveries(self) -> int:
+        return self.timing.recoveries if self.timing else 0
+
+    @property
+    def lost_rounds(self) -> int:
+        return self.timing.lost_rounds if self.timing else 0
+
+    @property
+    def events(self) -> int:
+        return self.timing.events if self.timing else 0
+
+    @property
+    def noise_topups(self) -> int:
+        return self.timing.noise_topups if self.timing else 0
 
     def mean_loss(self) -> float:
         """Mean of the logged (finite) round losses; NaN when none exist."""
