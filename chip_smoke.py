@@ -335,8 +335,31 @@ script exits non-zero, printing no result:
      1 on a copy with one ledger entry's ε halved, ``--to-chrome`` writes
      a trace ``validate_chrome_trace`` accepts, and the summary's
      per-hospital ε is the run's (the accountant's).
+ 26. shard — the multi-card layer on ranks that share the one card:
+     each rank is ``python3 chip_smoke.py --shard-rank CELL OUT``,
+     spawned by ``repro_torch.launch.ranks.spawn`` into a ``gloo`` group
+     (NCCL refuses two ranks on one device), so every collective is
+     staged through host memory, DTensor's too.  (a) Phase 13's GEMINI
+     DeCaPH (8 hospitals, paper width, sigma 1.0, 3 rounds, SecAgg off)
+     on 2 ranks ("data",): max|params - ideal's| <= 1e-5, ε identical,
+     ``sharded_puts > 0``.  (b) Phase 6's SmolLM-360M (untied, 4
+     hospitals x 64 x 256, batch 16, ghost clipping, 2 rounds) at full
+     width cut to 4 of 32 layers, in float32 (phase 7's dtype, where PR
+     12's bound holds), on 4 ranks (1, 2, 2) ("pod", "data", "model"),
+     at the same time as (a)'s ranks:
+     ``participant_shards > 0`` and ``param_shards > 0`` on every rank,
+     the update within 2 lr C 1e-4 of ideal's (L2), the summed peak under
+     80 GB; ``ghost_norm`` on rank 0's local-shard inputs against its
+     plain version at phase 3's limit; every rank's launches go to the
+     kernels line; per rank the peak memory, the round walls and the
+     collectives' bytes and seconds by kind (host-staged, not NVLink).
+     The dry run of SmolLM-360M x ``prefill_32k`` on the (16, 16) mesh of
+     a ``fake`` group (``python -m repro_torch.launch.dryrun``, on the
+     CPU; ``train_4k``'s does not run on the card machine's torch 2.11,
+     ROADMAP.md Queue 3): its lower time, FLOPs, collective bytes and
+     bottleneck.
 
-Artifacts and caches of phases 18–19 and 25 go into temp dirs under
+Artifacts and caches of phases 18–19, 25 and 26 go into temp dirs under
 ``build/``.
 The next-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
@@ -344,6 +367,7 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import cProfile
 import contextlib
 import dataclasses
@@ -446,6 +470,9 @@ from repro_torch.core.accountant import (  # noqa: E402
 from repro_torch.data.partition import train_test_split_silos  # noqa: E402
 from repro_torch.obs.convert import validate_chrome_trace  # noqa: E402
 from repro_torch.sim import protocols  # noqa: E402
+from repro_torch.launch import federated as federated_lib  # noqa: E402
+from repro_torch.launch.mesh import make_host_data_mesh, make_mesh  # noqa: E402
+from repro_torch.launch.ranks import init_rank, spawn  # noqa: E402
 
 ARCH = "smollm-360m"
 SEED = 0
@@ -4983,10 +5010,282 @@ def last_modules(dev, smi, dropout: dict) -> dict:
     return launches
 
 
+# -- 26. the multi-card layer: the shard backend on ranks sharing the card ----
+
+SHARD_GEMINI_RANKS = 2            # ("data",)
+SHARD_LM_MESH = ((1, 2, 2), ("pod", "data", "model"))
+# phase 6's model at full width, silos, batch and sigma, cut to 4 of its 32
+# layers (a round on the four ranks took 133 s at 32 layers and 32-54 s at
+# 8, most of it DTensor's dispatch and host-staged collectives), in float32
+# as phase 7's round: PR 12's bound on the update holds for float32 sums,
+# and bf16 products summed over the model axis in another order missed it
+# (9.0e-5 at 8 layers, run 1, PR 25)
+SHARD_LM = dict(TRAIN, rounds=2, n_layers=4)
+# the dry run on the card's machine: train_4k's programs stop there at the
+# head split under torch.func (torch 2.11's DTensor refuses the uneven view,
+# and the wrappers hide its placements from layers.split_dim; ROADMAP.md
+# Queue 3), so the phase traces the prefill program; the CPU tests trace
+# train_4k on torch 2.13
+SHARD_DRY = ("smollm-360m", "prefill_32k")
+SHARD_TIMEOUT_S = 400
+
+
+@contextlib.contextmanager
+def recording_local_ghost_inputs():
+    """Keep the first (a, g) of every shape that reaches the kernel itself:
+    under the model axis ``ghost_norm`` gets DTensors and runs the kernel
+    on each rank's local shards (``ghost_ops._ghost_norm_sharded``)."""
+    seen: dict = {}
+    real = ghost_ops.ghost_norm
+
+    def recording(a, g, **kw):
+        if not hasattr(a, "placements") and not hasattr(g, "placements"):
+            key = (*a.shape, g.shape[-1], a.dtype, g.dtype)
+            if key not in seen:
+                seen[key] = (a.detach().clone(), g.detach().clone())
+        return real(a, g, **kw)
+
+    with mock.patch.object(ghost_ops, "ghost_norm", recording):
+        yield seen
+
+
+def _comm_stats(runner) -> dict:
+    """A rank's collective bytes and seconds by kind: the backend's own
+    collectives (data and model groups) and DTensor's, staged."""
+    ex = runner.executor
+    out: dict = {}
+    for group, comm in (("data", ex.data), ("model", ex.model)):
+        if comm is None:
+            continue
+        for kind, n in comm.bytes.items():
+            out[f"{group}.{kind}"] = [n, comm.seconds[kind]]
+        out[f"{group}.staged_bytes"] = [comm.staged_bytes, 0.0]
+    staged = federated_lib.staged_stats()
+    if staged is not None:
+        for kind, n in staged["bytes"].items():
+            out[f"dtensor.{kind}"] = [n, staged["seconds"][kind]]
+    return out
+
+
+def _shard_gemini():
+    silos = arms.normalize_participants(make_gemini_like(**GEMINI["data"]))
+    model = tabular.make_mlp_classifier(GEMINI["sizes"], GEMINI["task"],
+                                        device="cuda")
+    return model, silos, _tabular_cfg(GEMINI, use_secagg=False)
+
+
+def _shard_lm():
+    layers = SHARD_LM["n_layers"]
+    mcfg = get_config(ARCH).replace(tie_embeddings=False, n_layers=layers,
+                                    stack=dense_stack(layers),
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+    cfg = dataclasses.replace(_train_cfg(SHARD_LM["rounds"], TRAIN["sigma"]),
+                              clipping="ghost")
+    return transformer_model(mcfg, device="cuda"), _silos(mcfg), cfg
+
+
+def shard_rank(cell: str, out: str) -> int:
+    """One rank of a phase-26 cell (``python3 chip_smoke.py --shard-rank
+    CELL OUT``): joins the ``gloo`` group it was spawned into, runs the
+    cell on the card and writes its numbers to ``OUT.<rank>``."""
+    rank, world = init_rank("gloo")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    walls: list = []
+    last = [time.perf_counter()]
+
+    def on_round(t, params):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls.append(now - last[0])
+        last[0] = now
+        say(f"round {t}: {walls[-1]:.2f} s, peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+
+    if cell == "gemini":
+        mesh = make_host_data_mesh(device_type="cuda")
+        model, silos, cfg = _shard_gemini()
+    else:
+        mesh = make_mesh(*SHARD_LM_MESH, "cuda")
+        model, silos, cfg = _shard_lm()
+    runner = federated_lib.ShardedRunner(mesh=mesh, on_round=on_round)
+    arm = arms.get("decaph")(model, silos, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ghost_ops.reset_launches()
+    last[0] = time.perf_counter()
+    with recording_local_ghost_inputs() as seen:
+        report = runner.run(arm)
+    torch.cuda.synchronize()
+    result = {
+        "rank": rank, "epsilon": report.epsilon,
+        "rounds": report.rounds_completed,
+        "launches": ghost_ops.launches(),
+        "peak_bytes": torch.cuda.max_memory_allocated(dev),
+        "round_walls": walls,
+        "sharded_puts": runner.executor.sharded_puts,
+        "participant_shards": runner.executor.participant_shards,
+        "param_shards": runner.executor.param_shards,
+        "comm": _comm_stats(runner),
+        "backend": runner.executor.data.backend,
+    }
+    if cell == "lm" and rank == 0:
+        result["local_err"] = path_ghost_vs_plain(
+            seen, "phase 26 rank 0's local shards")
+    if rank == 0:
+        torch.save(dict(enumerate(t.detach().cpu()
+                                  for t in tree_leaves(report.params))),
+                   out + ".params")
+    Path(f"{out}.{rank}").write_text(json.dumps(result))
+    return 0
+
+
+def _shard_ranks(cell: str, world: int, tmp: Path) -> list:
+    """Spawn ``world`` ranks of ``cell`` on the card; their results."""
+    out = str(tmp / cell)
+    # four ranks' allocators share 80 GB: no reserved-but-free segments
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = spawn([sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank",
+                   cell, out], world, str(tmp / f"init_{cell}"),
+                  timeout=SHARD_TIMEOUT_S, env=env)
+    failed = []
+    for rank, p in enumerate(procs):
+        for line in p.stdout.splitlines():
+            say(f"  [{cell} rank {rank}] {line}")
+        if p.returncode != 0:
+            failed.append(f"rank {rank} exited {p.returncode}:\n"
+                          f"{p.stderr[-3000:]}")
+    if failed:
+        raise AssertionError(f"phase 26 {cell}: " + "\n".join(failed))
+    return [json.loads(Path(f"{out}.{r}").read_text()) for r in range(world)]
+
+
+def _shard_params(tmp: Path, cell: str) -> dict:
+    """Rank 0's trained parameters, {leaf index: tensor}."""
+    return torch.load(str(tmp / cell) + ".params")
+
+
+def _say_ranks(cell: str, ranks: list, smi: str) -> None:
+    for r in ranks:
+        comm = ", ".join(f"{k} {v[0]} B {v[1]:.3f} s"
+                         for k, v in sorted(r["comm"].items()))
+        say(f"phase 26 {cell} rank {r['rank']}: peak "
+            f"{r['peak_bytes'] / 1e9:.3f} GB, round walls "
+            f"{[round(w, 4) for w in r['round_walls']]} s, ghost_norm "
+            f"launches {r['launches']}; collectives ({r['backend']}, "
+            f"host-staged, not NVLink): {comm} on {smi}")
+
+
+def _dry_run_proc(tmp: Path) -> subprocess.Popen:
+    arch, shape = SHARD_DRY
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", str(tmp / "dryrun")],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def shard_path(dev, smi) -> dict:
+    """Phase 26: the shard backend on ranks that share the card over gloo
+    (NCCL refuses two ranks on one device), against the port's ideal;
+    the dry run of SmolLM-360M x train_4k on the (16, 16) mesh."""
+    say("phase 26: ranks share the one card, so the group is gloo (NCCL "
+        "refuses two ranks on one device); every collective is staged "
+        "through host memory, so its bytes and seconds are the host's, "
+        "not NVLink's")
+    with tempfile.TemporaryDirectory(prefix="shard-", dir=ROOT / "build") as d:
+        tmp = Path(d)
+        dry = _dry_run_proc(tmp)
+        # ideal's runs in this process first: (a) GEMINI DeCaPH, (b)
+        # SmolLM-360M; then both cells' ranks at once ((a)'s are light)
+        model, silos, cfg = _shard_gemini()
+        ideal = arms.run("decaph", model, silos, cfg)
+        gemini_params = [t.detach().cpu() for t in tree_leaves(ideal.params)]
+        gemini_eps = ideal.epsilon
+        model, silos, cfg = _shard_lm()
+        initial = dict(enumerate(t.detach().cpu() for t in
+                                 tree_leaves(model.init_fn(SEED))))
+        t0 = time.perf_counter()
+        ideal = arms.run("decaph", model, silos, cfg)
+        ideal_s = time.perf_counter() - t0
+        ideal_params = dict(enumerate(t.detach().cpu()
+                                      for t in tree_leaves(ideal.params)))
+        del model, ideal
+        torch.cuda.empty_cache()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            cell_a = pool.submit(_shard_ranks, "gemini", SHARD_GEMINI_RANKS,
+                                 tmp)
+            cell_b = pool.submit(_shard_ranks, "lm",
+                                 math.prod(SHARD_LM_MESH[0]), tmp)
+            ranks = cell_a.result()
+            lm_ranks = cell_b.result()
+        # (a) on 2 ranks ("data",), against ideal
+        got = _shard_params(tmp, "gemini")
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(gemini_params, got.values()))
+        eps = {r["epsilon"] for r in ranks}
+        ok = (diff <= 1e-5 and eps == {gemini_eps}
+              and all(r["sharded_puts"] > 0 for r in ranks))
+        _say_ranks("gemini", ranks, smi)
+        say(f"phase 26 (a) GEMINI DeCaPH, 8 hospitals, 2 ranks ('data',): "
+            f"max|shard - ideal| {diff:.3e} (limit 1e-5), eps {eps} vs "
+            f"ideal {gemini_eps}, sharded_puts "
+            f"{[r['sharded_puts'] for r in ranks]} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 26 (a): shard disagrees with ideal")
+        # (b) SmolLM-360M at full width on (1, 2, 2), against ideal
+        ranks = lm_ranks
+        got = _shard_params(tmp, "lm")
+        l2, upd = _update_l2(initial, got, ideal_params)
+        bound = 2 * TRAIN["lr"] * TRAIN["clip"] * 1e-4
+        launches = sum(r["launches"] for r in ranks)
+        peak = sum(r["peak_bytes"] for r in ranks)
+        ok = (l2 <= bound and all(r["participant_shards"] > 0
+                                  and r["param_shards"] > 0 for r in ranks)
+              and launches > 0 and peak < 80e9
+              and len({r["epsilon"] for r in ranks}) == 1)
+        _say_ranks("lm", ranks, smi)
+        say(f"phase 26 (b) SmolLM-360M full width, {SHARD_LM['n_layers']} "
+            f"layers, float32 (untied, 4 hospitals x "
+            f"{TRAIN['n_per']} x {TRAIN['seq_len']}, ghost, "
+            f"{SHARD_LM['rounds']} rounds) on {SHARD_LM_MESH[0]} "
+            f"{SHARD_LM_MESH[1]}: |update - ideal's update| {l2:.3e} "
+            f"(bound 2 lr C 1e-4 = {bound:.1e}; ideal's update {upd:.3e}, "
+            f"ideal's run {ideal_s:.1f} s in one process), "
+            f"participant_shards {[r['participant_shards'] for r in ranks]}, "
+            f"param_shards {[r['param_shards'] for r in ranks]}, ghost_norm "
+            f"launches {[r['launches'] for r in ranks]} (sum {launches}), "
+            f"local-shard kernel vs plain max|err| {ranks[0]['local_err']:.3e},"
+            f" summed peak {peak / 1e9:.3f} GB of 80 "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 26 (b): shard outside its bound, or "
+                                 "a counter or the memory is off")
+        out, err = dry.communicate(timeout=SHARD_TIMEOUT_S)
+        if dry.returncode != 0:
+            raise AssertionError(f"phase 26 dry run exited {dry.returncode}:"
+                                 f"\n{err[-3000:]}")
+        rec = json.loads(next((tmp / "dryrun").glob("*.json")).read_text())
+        terms = rec["roofline"]
+        lower = max(terms["compute_s"], terms["memory_s"],
+                    terms["collective_s"])
+        say(f"phase 26 dry run {SHARD_DRY[0]} x {SHARD_DRY[1]} on "
+            f"{rec['mesh']} ({rec['n_chips']} fake ranks, CPU, nothing "
+            f"allocated): lower time {lower:.4f} s at the H100's peaks, "
+            f"flops {rec['flops']:.4e}, collective bytes "
+            f"{rec['collective_bytes']:.4e}, bottleneck "
+            f"{terms['bottleneck']}, traced in {rec['trace_s']:.1f} s")
+    return {"ghost_norm": launches}
+
+
 # -- main -----------------------------------------------------------------------
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--shard-rank"]:
+        return shard_rank(sys.argv[2], sys.argv[3])
     smi = card()
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
@@ -5102,6 +5401,10 @@ def main() -> int:
         launches[name] += n
     del dropout
     say(f"phase 25: {time.perf_counter() - t25:.1f} s")
+    t26 = time.perf_counter()
+    for name, n in shard_path(dev, smi).items():
+        launches[name] += n
+    say(f"phase 26: {time.perf_counter() - t26:.1f} s")
     lines = [{**k, "launches": launches[k["name"]],
               "max_abs_err": worst[k["name"]], **times[k["name"]]}
              for k in KERNELS]

@@ -79,14 +79,15 @@ from repro_torch.arms import scaffold as _scaffold      # noqa: F401
 
 def run(name: str, model: Model, participants: Sequence[Participant],
         cfg: ArmConfig, *, backend: str = backends.DEFAULT_BACKEND,
-        nodes=None, topo=None, on_round=None) -> RunReport:
+        nodes=None, topo=None, mesh=None, on_round=None) -> RunReport:
     """Instantiate arm ``name`` and execute it on the chosen backend.
 
     ``backend`` is any name from ``backends.backend_registry()``; the
     (arm, backend, config) triple and the clipping path are validated
     before any compute.  Each backend consumes the ``RunSetup`` fields it
     understands — ``nodes`` (one ``HospitalNode`` per participant) for
-    simulated time — and rejects what it requires but did not get.
+    simulated time, ``mesh`` (a ``DeviceMesh``, ``launch.mesh``) for the
+    SPMD ``shard`` backend — and rejects what it requires but did not get.
     ``topo`` defaults to the arm's natural topology; ``on_round(t, params)``
     is called after every completed round.
     """
@@ -95,7 +96,7 @@ def run(name: str, model: Model, participants: Sequence[Participant],
     backends.validate_run(arm_cls, backend_cls.info, cfg)
     clipping.resolve(model, cfg)
     runner = backend_cls.from_setup(
-        RunSetup(nodes=nodes, topo=topo, on_round=on_round))
+        RunSetup(nodes=nodes, topo=topo, mesh=mesh, on_round=on_round))
     with obs.span("arms.run", cat="train", arm=name, backend=backend,
                   hospitals=len(participants)):
         return runner.run(arm_cls(model, participants, cfg))

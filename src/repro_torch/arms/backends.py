@@ -16,11 +16,11 @@ combination the record rules out, with the rule that rejected it, before
 any compute.  ``bit_exact_group``: backends sharing a group promise
 bit-identical trajectories under ideal conditions.
 
-The port registers ``ideal`` and ``sim`` (``arms.runners``) and
-``population`` (``population.backend``); the reference's ``shard``
-backend runs across cards and asking for it raises a ``ValueError``
-naming its ROADMAP.md item.  The backend classes are loaded on first
-registry access.
+The port registers ``ideal`` and ``sim`` (``arms.runners``), ``shard``
+(``launch.federated``: the fused cohort step SPMD over a
+``torch.distributed`` mesh) and ``population`` (``population.backend``),
+as the reference does.  The backend classes are loaded on first registry
+access.
 """
 
 from __future__ import annotations
@@ -40,13 +40,9 @@ DEFAULT_BACKEND = "ideal"
 # Importing one of these modules registers its backend(s).
 _BACKEND_MODULES = (
     "repro_torch.arms.runners",       # ideal + sim
+    "repro_torch.launch.federated",   # shard (SPMD mesh execution)
     "repro_torch.population.backend",  # population
 )
-
-# The reference's backends that the port does not run yet.
-_NOT_PORTED = {
-    "shard": "ROADMAP.md, Queue 1 item 7 (multi-GPU)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +85,7 @@ class RunSetup:
 
     nodes: Sequence[Any] | None = None  # HospitalNode list (sim-time backends)
     topo: Any | None = None             # Topology override
+    mesh: Any | None = None             # DeviceMesh override (SPMD backends)
     # ``on_round(t, params)`` after every completed round on every backend:
     # the checkpoint-handoff seam (DESIGN.md §9)
     on_round: Callable[[int, Any], None] | None = None
@@ -147,9 +144,6 @@ def backend_registry() -> dict[str, BackendInfo]:
 
 def get_backend(name: str) -> type:
     _ensure_loaded()
-    if name in _NOT_PORTED and name not in _REGISTRY:
-        raise ValueError(f"backend {name!r} is not ported yet "
-                         f"({_NOT_PORTED[name]})")
     try:
         return _REGISTRY[name]
     except KeyError:

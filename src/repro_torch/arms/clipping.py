@@ -73,6 +73,7 @@ def clipped_grad_sum_fn(model, cfg, pad: int) -> Callable:
     the transformer token layout and drops the norms from the return, so
     both branches share one signature.
     """
+    from repro_torch.arms.fused import example_sum
     from repro_torch.core import dp as dp_lib
 
     if resolve(model, cfg) == "per-example":
@@ -82,6 +83,7 @@ def clipped_grad_sum_fn(model, cfg, pad: int) -> Callable:
             return dp_lib.per_example_clipped_grad_sum(
                 model.loss_fn, params, batch,
                 clip_norm=cfg.dp.clip_norm, microbatch_size=micro, mask=mask,
+                reduce=example_sum,
             )
 
         return per_example
@@ -94,7 +96,7 @@ def clipped_grad_sum_fn(model, cfg, pad: int) -> Callable:
         gbatch = {"tokens": batch["x"].long(), "labels": batch["y"].long()}
         grads, loss, _norms = ghost_lib.ghost_clipped_grad_sum(
             cap.cfg, params, gbatch, clip_norm=cfg.dp.clip_norm,
-            chunk_size=cap.chunk_size, mask=mask)
+            chunk_size=cap.chunk_size, mask=mask, reduce=example_sum)
         return grads, loss
 
     return ghost

@@ -130,11 +130,13 @@ class DeCaPHArm(RoundArm):
         participant's loss; the one not returned is None."""
         device = tree_device(params)
         stack, losses = [], []
-        for s, i in enumerate(active):
+        for s in fused.cohort_slots(len(active)):
             g_sum, loss = self._clip_fn(params, {"x": bx[s], "y": by[s]},
                                         masks[s])
-            stack.append(self._noised(g_sum, t, i, n_shares, device))
+            stack.append(self._noised(g_sum, t, active[s], n_shares, device))
             losses.append(loss)
+        stack = fused.gather_slots(stack, len(active))
+        losses = fused.gather_slots(losses, len(active))
         if payloads:
             return stack, None, torch.stack(losses)
         return None, fused.seq_tree_sum(stack), torch.stack(losses)

@@ -56,8 +56,8 @@ class FLArm(RoundArm):
 
     def _batch_grad(self, params, batch, mask):
         """Gradient of the mask-weighted sum of the batch's losses."""
-        return torch.func.grad(
-            lambda p: torch.sum(self._batch_loss(p, batch) * mask))(params)
+        return fused.example_sum(torch.func.grad(
+            lambda p: torch.sum(self._batch_loss(p, batch) * mask))(params))
 
     def _local_step_grad(self, local, batch, mask, k: int, global_params):
         """One local step's gradient (FedProx adds its proximal term);
@@ -83,12 +83,14 @@ class FLArm(RoundArm):
         local model) as a list (with ``payloads``) or else the cohort's
         total (FedSGD) or size-weighted average (FedAvg); the one not
         returned is None."""
+        slots = fused.cohort_slots(len(bx))
         if self.fedavg:
             stack = [self._local_model(params, bx[s], by[s], masks[s],
-                                       counts[s]) for s in range(len(bx))]
+                                       counts[s]) for s in slots]
         else:
             stack = [self._batch_grad(params, {"x": bx[s], "y": by[s]},
-                                      masks[s]) for s in range(len(bx))]
+                                      masks[s]) for s in slots]
+        stack = fused.gather_slots(stack, len(bx))
         if payloads:
             return stack, None
         if self.fedavg:

@@ -17,6 +17,16 @@ Contract, as in the reference:
     ascending-slot order on the device, so the ideal backend's fused total
     and the simulated backend's sum of delivered payloads agree bit for
     bit.
+
+The executor seam (the reference's ``execution_context`` /
+``active_executor``, from ``repro_torch.instrument``): under a mesh
+executor (the ``shard`` backend) ``stack_poisson`` rounds the cohort pad
+up with ``executor.round_pad`` and ``mark``s the stacked arrays,
+``to_device`` keeps this rank's part of each, and the cohort steps run
+their slots through three hooks: ``cohort_slots`` (the slots this rank
+computes), ``gather_slots`` (every slot's result, in slot order) and
+``example_sum`` (a sum over a slot's examples, summed over the ranks that
+split them).  Without an executor each hook is the identity, bit for bit.
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ from repro_torch.arms.base import (
     tree_sum,
 )
 from repro_torch.instrument import (  # noqa: F401  (re-exported)
+    active_executor,
+    execution_context,
     instrumented,
     jit_dispatches,
     reset_jit_dispatches,
@@ -82,6 +94,10 @@ def stack_poisson(rng: np.random.Generator,
     to the cohort's max, as is the whole cohort when a draw outgrew its
     pad (``poisson_batch`` grows rather than truncates).  Masks keep the
     extra rows inert.
+
+    Under a mesh executor the pad is rounded up to the mesh's data extent
+    (again mask-inert) and the stacked batch arrays are marked for
+    splitting.
     """
     t0 = obs.now()  # host-RNG phase: the one per-round host-side cost
     rate_of = ((lambda i: rate) if isinstance(rate, (int, float))
@@ -92,6 +108,9 @@ def stack_poisson(rng: np.random.Generator,
               for _ in range(k_steps)] for i in active]
     pad_to = max([pad_of(i) for i in active]
                  + [len(d[1]) for row in draws for d in row])
+    executor = active_executor()
+    if executor is not None:
+        pad_to = executor.round_pad(pad_to)
 
     def gather(fn):
         return np.stack([np.stack([fn(d) for d in row]) for row in draws])
@@ -103,15 +122,45 @@ def stack_poisson(rng: np.random.Generator,
     sizes = [int(c) for c in counts.sum(axis=1)]
     if steps is None:  # collapse the singleton steps axis
         x, y, masks, counts = x[:, 0], y[:, 0], masks[:, 0], counts[:, 0]
+    if executor is not None:
+        for arr in (x, y, masks):
+            executor.mark(arr, axis=1 if steps is None else 2)
     obs.complete("host_rng.stack_poisson", t0, cat="rng",
                  cohort=len(active), pad=pad_to)
     return CohortBatch(x=x, y=y, masks=masks, counts=counts, sizes=sizes)
 
 
 def to_device(cb: CohortBatch, device) -> tuple[torch.Tensor, ...]:
-    """``x``, ``y`` and ``masks`` of ``cb`` as tensors on ``device``."""
-    return tuple(torch.from_numpy(a).to(device)
+    """``x``, ``y`` and ``masks`` of ``cb`` as tensors on ``device`` (under
+    a mesh executor, this rank's part of each)."""
+    executor = active_executor()
+    local = (lambda a: a) if executor is None else executor.local_rows
+    return tuple(torch.from_numpy(local(a)).to(device)
                  for a in (cb.x, cb.y, cb.masks))
+
+
+# -- the mesh hooks of the cohort steps --------------------------------------
+
+
+def cohort_slots(n: int) -> Sequence[int]:
+    """The cohort slots of ``n`` this rank computes: all of them, unless a
+    mesh executor splits the participant axis."""
+    executor = active_executor()
+    return range(n) if executor is None else executor.slots(n)
+
+
+def gather_slots(results: list, n: int) -> list:
+    """Every slot's result in slot order, from this rank's ``results`` for
+    ``cohort_slots(n)`` (each a tree of tensors)."""
+    executor = active_executor()
+    return results if executor is None else executor.gather_slots(results, n)
+
+
+def example_sum(tree):
+    """A sum over one slot's examples (a tree of tensors): summed over the
+    ranks that split the examples, made whole where it is a DTensor."""
+    executor = active_executor()
+    return tree if executor is None else executor.example_sum(tree)
 
 
 # -- the cohort reductions on the device -------------------------------------

@@ -103,17 +103,20 @@ class PriMIAArm(RoundArm):
         divides by its own real-example count."""
         cfg, device = self.cfg, tree_device(params)
         stack, losses = [], []
-        for s, i in enumerate(active):
+        for s in fused.cohort_slots(len(active)):
             g_sum, loss = self._clip_fn(params, {"x": bx[s], "y": by[s]},
                                         masks[s])
             gen = torch.Generator(device=device)
-            gen.manual_seed(dp_lib.noise_seed(cfg.seed, _NOISE_STREAM + t, i))
+            gen.manual_seed(dp_lib.noise_seed(cfg.seed, _NOISE_STREAM + t,
+                                              active[s]))
             # local DP: the FULL noise per client (n_shares=1)
             g = dp_lib.tree_add_noise(
                 g_sum, gen, clip_norm=cfg.dp.clip_norm,
                 noise_multiplier=cfg.dp.noise_multiplier, n_shares=1)
             stack.append(tree_div(g, max(counts[s], 1)))
             losses.append(loss)
+        stack = fused.gather_slots(stack, len(active))
+        losses = fused.gather_slots(losses, len(active))
         if payloads:
             return stack, None, torch.stack(losses)
         return None, fused.seq_tree_sum(stack), torch.stack(losses)

@@ -211,6 +211,13 @@ class LocalRunner:
             return self._run_nodes(arm)
         raise TypeError(f"unknown arm mode {arm.mode!r} for {arm.name!r}")
 
+    def _contributions(self, arm: RoundArm, params, active, t, rng,
+                       payloads) -> tuple[dict[int, Contribution],
+                                          Tree | None]:
+        """The round's contributions (``_contributions``): the seam the
+        ``shard`` backend runs on its mesh."""
+        return _contributions(arm, params, active, t, rng, payloads)
+
     def _run_rounds(self, arm: RoundArm) -> RunReport:
         cfg, h = arm.cfg, arm.h
         params = arm.init_params()
@@ -228,7 +235,7 @@ class LocalRunner:
                 # one program call for the whole cohort; with SecAgg off
                 # the reduced aggregate never leaves the device, with it on
                 # the payloads leave in one copy and nothing is reduced
-                contribs, reduced = _contributions(
+                contribs, reduced = self._contributions(
                     arm, params, active, t, rng, "host" if secure else None)
                 if not contribs:
                     if arm.empty_break:

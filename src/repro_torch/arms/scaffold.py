@@ -69,8 +69,8 @@ class ScaffoldArm(RoundArm):
 
     def _batch_grad(self, params, batch, mask):
         """Gradient of the mask-weighted sum of the batch's losses."""
-        return torch.func.grad(
-            lambda p: torch.sum(self._batch_loss(p, batch) * mask))(params)
+        return fused.example_sum(torch.func.grad(
+            lambda p: torch.sum(self._batch_loss(p, batch) * mask))(params))
 
     def _one_client(self, params, ci, bxs, bys, ms, ks):
         """K corrected local steps for one client; empty draws skipped."""
@@ -89,15 +89,17 @@ class ScaffoldArm(RoundArm):
 
     def _cohort_step(self, params, bx, by, masks, counts, active, payloads):
         """Every active client's {dy, dc} (with ``payloads``) or else their
-        ascending total; each client's variate row gains its dc in place."""
-        stack = []
-        for s, i in enumerate(active):
+        ascending total; each client's variate row gains its dc in place
+        (after every slot is computed: a slot reads only its own row)."""
+        stack = [self._one_client(params,
+                                  tree_map(lambda st: st[active[s]], self._ci),
+                                  bx[s], by[s], masks[s], counts[s])
+                 for s in fused.cohort_slots(len(active))]
+        stack = fused.gather_slots(stack, len(active))
+        for i, payload in zip(active, stack):
             ci = tree_map(lambda st: st[i], self._ci)
-            payload = self._one_client(params, ci, bx[s], by[s], masks[s],
-                                       counts[s])
             for row, d in zip(tree_leaves(ci), tree_leaves(payload["dc"])):
                 row.add_(d)  # c_i+ = c_i + dc, into the stacked tree
-            stack.append(payload)
         if payloads:
             return stack, None
         return None, fused.seq_tree_sum(stack)

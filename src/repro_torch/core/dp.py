@@ -68,6 +68,7 @@ def per_example_clipped_grad_sum(
     microbatch_size: int = 16,
     mask: torch.Tensor | None = None,
     accum_dtype: torch.dtype = torch.float32,
+    reduce: Callable | None = None,
 ) -> tuple[Tree, torch.Tensor]:
     """Sum of per-example L2-clipped gradients (paper Algorithm 2, lines 1-3).
 
@@ -78,7 +79,9 @@ def per_example_clipped_grad_sum(
     mean unclipped loss over real examples) =
     (Σ_i clip_i·g_i·mask_i, Σ(loss·mask) / max(Σmask, 1)); both sums
     accumulate in ``accum_dtype`` (float32 unless asked), as the
-    reference's do.
+    reference's do.  ``reduce``, where the batch's rows are split over
+    ranks, maps (gradient sum, loss sum, real-row count) to their sums over
+    the ranks before the mean is taken.
     """
     params = tree_map(torch.Tensor.detach, params)
     batch_size = tree_leaves(batch)[0].shape[0]
@@ -114,8 +117,10 @@ def per_example_clipped_grad_sum(
         acc = tree_map(lambda a, x: a + torch.sum(x.to(accum_dtype), dim=0),
                        acc, g)
         loss_acc = loss_acc + torch.sum(losses)
-    n_real = torch.clamp(torch.sum(mask), min=1.0)
-    return acc, loss_acc / n_real
+    n_real = torch.sum(mask)
+    if reduce is not None:
+        acc, loss_acc, n_real = reduce((acc, loss_acc, n_real))
+    return acc, loss_acc / torch.clamp(n_real, min=1.0)
 
 
 def noise_seed(*entropy: int) -> int:
@@ -139,11 +144,17 @@ def noise_share(
     Each of ``n_shares`` participants draws N(0, (C sigma)^2 / H); the sum
     then carries exactly N(0, (C sigma)^2) — the paper's distributed-DP
     trick.  Leaves are drawn in tree order from ``generator``, on its
-    device.
+    device.  A shape-only program (a template on the meta device, as a
+    dry run traces it) takes ``generator=None`` and draws nothing.
     """
     std = clip_norm * noise_multiplier / math.sqrt(float(n_shares))
+    device = generator.device if generator is not None else \
+        tree_leaves(template)[0].device
+    if generator is None and device.type != "meta":
+        raise ValueError("noise needs a generator (None only for a "
+                         "template on the meta device)")
     noised = [torch.randn(x.shape, generator=generator, dtype=torch.float32,
-                          device=generator.device) * std
+                          device=device) * std
               for x in tree_leaves(template)]
     return tree_unflatten(template, noised)
 

@@ -49,7 +49,8 @@ from repro_torch.models.attention import (
     _sdpa_blocked,
     rope,
 )
-from repro_torch.models.layers import _act, apply_norm, matmul
+from repro_torch.models.layers import (_act, apply_norm, matmul, shard,
+                                       split_last)
 from repro_torch.tree import Tree, tree_leaves, tree_map, tree_unflatten
 
 
@@ -160,18 +161,48 @@ def _per_example_embed_norm(tokens: torch.Tensor, g: torch.Tensor
     return torch.sum(seg * seg, dim=(1, 2)).float()
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor as the whole plain tensor (a plain one as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _placed_like(full: torch.Tensor, layout) -> torch.Tensor:
+    """``full`` (every rank's whole tensor) as a DTensor of ``layout`` =
+    (mesh, placements), each rank keeping its own shard; ``layout`` None
+    keeps it plain."""
+    if layout is None:
+        return full
+    from torch.distributed.tensor import DTensor
+
+    mesh, placements = layout
+    local, coord = full, mesh.get_coordinate()
+    for md, p in enumerate(placements):
+        if p.is_shard():
+            local = local.chunk(mesh.size(md), dim=p.dim)[coord[md]]
+    return DTensor.from_local(local.contiguous(), mesh, placements,
+                              run_check=False, shape=full.shape,
+                              stride=full.stride())
+
+
 class _DPEmbed(torch.autograd.Function):
-    """y = emb[tokens] with exact per-example grad norms in the backward."""
+    """y = emb[tokens] with exact per-example grad norms in the backward.
+
+    With DTensors (the ``shard`` backend's model axis, a dry run's mesh)
+    the backward forms the whole gradient and norms on every rank from the
+    whole cotangent and tokens, and keeps the table's own shard of it."""
 
     @staticmethod
     def forward(ctx, emb, tokens, coll):
         ctx.save_for_backward(tokens)
         ctx.emb_shape, ctx.emb_dtype = emb.shape, emb.dtype
+        ctx.emb_layout = ((emb.device_mesh, emb.placements)
+                          if hasattr(emb, "placements") else None)
         return emb[tokens], coll.clone()
 
     @staticmethod
     def backward(ctx, ybar, collbar):
         (tokens,) = ctx.saved_tensors
+        tokens, ybar = _whole(tokens), _whole(ybar)
         embbar = None
         if ctx.needs_input_grad[0]:
             flat = tokens.reshape(-1)
@@ -187,7 +218,7 @@ class _DPEmbed(torch.autograd.Function):
                 embbar.index_put_((flat,), rows, accumulate=True)
             else:
                 embbar.index_add_(0, flat, rows)
-            embbar = embbar.to(ctx.emb_dtype)
+            embbar = _placed_like(embbar.to(ctx.emb_dtype), ctx.emb_layout)
         if ctx.needs_input_grad[2]:
             collbar = collbar + _per_example_embed_norm(tokens, ybar).to(
                 collbar.dtype)
@@ -226,9 +257,9 @@ def _attn_g(cfg, p, x, positions, mrope_positions, coll, with_norms):
     q, coll = dp_dense(x, p["wq"], coll, with_norms)
     k, coll = dp_dense(x, p["wk"], coll, with_norms)
     v, coll = dp_dense(x, p["wv"], coll, with_norms)
-    q, k = rope(q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd), positions,
+    q, k = rope(split_last(q, h, hd), split_last(k, kv, hd), positions,
                 cfg, mrope_positions)
-    v = v.reshape(b, s, kv, hd)
+    v = split_last(v, kv, hd)
     if cfg.use_flash:   # never the flash kernel: it has no backward
         out = _sdpa_blocked(q, k, v, causal=True, window=cfg.sliding_window)
     else:
@@ -256,17 +287,21 @@ def forward_ghost(cfg, params: dict, batch: dict, coll: torch.Tensor, *,
         raise NotImplementedError(f"{cfg.name}: the ghost path runs dense "
                                   "stacks; MoE takes the per-example path")
     x, coll = dp_embed(params["embed"], batch["tokens"].long(), coll)
-    x = tf.prefix_vision(cfg, x.to(cfg.cdtype), batch)
+    x = shard(tf.prefix_vision(cfg, x.to(cfg.cdtype), batch), "batch", "seq",
+              None)
     b, s, _ = x.shape
     positions, mrope_positions = tf.positions_of(cfg, batch, b, s, x.device)
     for p in tf.layer_params(params["layers"]):
         h, coll = _norm_g(cfg, p.get("norm1"), x, coll, with_norms)
         h, coll = _attn_g(cfg, p, h, positions, mrope_positions, coll,
                           with_norms)
-        x = x + h
+        # the port's hints on the row-parallel outputs (one more each than
+        # the reference's): a model-axis sum left pending or feature-
+        # sharded would reach the next collectors split on both operands
+        x = x + shard(h, "batch", "seq", None)
         h, coll = _norm_g(cfg, p.get("norm2"), x, coll, with_norms)
         h, coll = _ffn_g(cfg, p, h, coll, with_norms)
-        x = x + h
+        x = shard(x + shard(h, "batch", "seq", None), "batch", "seq", None)
     x, coll = _norm_g(cfg, params.get("final_norm"), x, coll, with_norms)
     logits, coll = dp_dense(x, tf.head_of(cfg, params).to(cfg.cdtype), coll,
                             with_norms)
@@ -309,7 +344,8 @@ def _grads_of_chunk(cfg, params, bchunk, factors) -> Tree:
 
 def ghost_clipped_grad_sum(cfg, params: dict, batch: dict, *,
                            clip_norm: float, chunk_size: int | None = None,
-                           mask: torch.Tensor | None = None
+                           mask: torch.Tensor | None = None,
+                           reduce=None
                            ) -> tuple[dict, torch.Tensor, torch.Tensor]:
     """Exact clipped-sum gradients in 2 batched passes (no per-example grads).
 
@@ -318,7 +354,8 @@ def ghost_clipped_grad_sum(cfg, params: dict, batch: dict, *,
     one full-batch chunk).  ``mask`` ([B] of {0,1}) drops padding rows:
     their clip factors are zeroed and the returned loss is the
     mask-weighted mean, Σ(per_ex·mask) / max(Σmask, 1) — the semantics of
-    ``dp.per_example_clipped_grad_sum``.
+    ``dp.per_example_clipped_grad_sum``, whose ``reduce`` this takes too
+    (the norms, per example, stay each rank's own).
 
     Returns (grad_sum tree, mask-weighted mean loss, per-example norms).
     """
@@ -330,7 +367,6 @@ def ghost_clipped_grad_sum(cfg, params: dict, batch: dict, *,
     if mask is None:
         mask = torch.ones((b,), dtype=torch.float32, device=tokens.device)
     mask = mask.float()
-    denom = torch.clamp(torch.sum(mask), min=1.0)
     frozen = tree_map(torch.Tensor.detach, params)
 
     def part(t, c):
@@ -354,4 +390,7 @@ def ghost_clipped_grad_sum(cfg, params: dict, batch: dict, *,
         else:  # chunks accumulate in float32, as the reference's scan does
             grads = tree_map(lambda a, x: a + x.float(), grads, g) \
                 if grads is not None else tree_map(lambda x: x.float(), g)
-    return grads, loss_sum / denom, norms
+    n_real = torch.sum(mask)
+    if reduce is not None:
+        grads, loss_sum, n_real = reduce((grads, loss_sum, n_real))
+    return grads, loss_sum / torch.clamp(n_real, min=1.0), norms

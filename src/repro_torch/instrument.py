@@ -12,10 +12,17 @@ The counter increments under a lock (an unguarded ``+= 1`` loses ticks
 when two threads dispatch at once).  With ``repro_torch.obs`` recording
 on, each call also records a ``jit_dispatch`` span and a
 ``jit_dispatches`` counter event, as the reference does.
+
+``execution_context(executor)`` is the reference's executor seam: while
+it is active on a thread, every instrumented call is handed to
+``executor.execute(fn, args, kwargs)`` instead (the ``shard`` backend's
+``launch.federated.MeshExecutor`` places the operands on its mesh there).
+Without an executor nothing changes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 from typing import Callable
@@ -24,6 +31,23 @@ import repro_torch.obs as obs
 
 _count_lock = threading.Lock()
 _jit_dispatch_count = 0  # guarded by _count_lock
+_EXECUTOR = threading.local()
+
+
+@contextlib.contextmanager
+def execution_context(executor):
+    """Route this thread's instrumented calls through ``executor``."""
+    prev = getattr(_EXECUTOR, "executor", None)
+    _EXECUTOR.executor = executor
+    try:
+        yield executor
+    finally:
+        _EXECUTOR.executor = prev
+
+
+def active_executor():
+    """The executor installed on this thread, or None."""
+    return getattr(_EXECUTOR, "executor", None)
 
 
 def instrumented(fn: Callable) -> Callable:
@@ -35,7 +59,9 @@ def instrumented(fn: Callable) -> Callable:
         with _count_lock:
             _jit_dispatch_count += 1
         t0 = obs.now()  # None when recording is off
-        out = fn(*args, **kwargs)
+        executor = active_executor()
+        out = (fn(*args, **kwargs) if executor is None
+               else executor.execute(fn, args, kwargs))
         if t0 is not None:
             obs.complete("jit_dispatch", t0, cat="jit",
                          fn=getattr(fn, "__name__", "<fn>"))

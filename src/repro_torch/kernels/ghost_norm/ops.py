@@ -9,10 +9,22 @@ validates its inputs, then
     there is no fallback to the plain version on the card;
   * on CPU tensors returns ``ghost_norm_blocked``, the kernel's algorithm
     in plain PyTorch (the reference's CPU tier), or the full-Gram oracle
-    ``ghost_norm_ref`` when ``prefer_oracle`` is set.
+    ``ghost_norm_ref`` when ``prefer_oracle`` is set; so it does on meta
+    tensors, where a dry run traces shapes only.
 
 ``launches()`` counts kernel launches (never plain-version calls), so a
 run can show that its dense-layer backwards went through the kernel.
+
+DTensor inputs (the ``shard`` backend's model axis): the kernel (or the
+plain version) runs on each rank's local shards, never on a local pointer
+as if it held the global shape.  Where ``a`` or ``g`` is sharded on its
+feature dim over a mesh dim, the local norms are summed over that mesh
+dim (an all-reduce): ||A^T G||_F^2 is the sum over column blocks G_r of
+||A^T G_r||^2, and likewise over row blocks of A.  Where both are, the
+sum does not split and the wrapper raises; so it does for a sequence
+split, whose cross terms (s, t) span ranks.  A batch split must be the
+same on both and stays one on the norms.  A pending sum (a ``Partial``
+operand) is all-reduced first.
 """
 
 from __future__ import annotations
@@ -153,11 +165,61 @@ def _check_kernel(a: torch.Tensor, g: torch.Tensor) -> None:
                          "int32")
 
 
+def _is_dtensor(x) -> bool:
+    return hasattr(x, "placements") and hasattr(x, "to_local")
+
+
+def _ghost_norm_sharded(a, g, prefer_oracle: bool):
+    """``ghost_norm`` of DTensor operands (a plain one is replicated): the
+    local norms of the local shards, all-reduced over every mesh dim that
+    splits a feature dim."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    ref = a if _is_dtensor(a) else g
+    mesh = ref.device_mesh
+    # a pending sum (a Partial cotangent) is reduced first: the norm is
+    # not linear in its operands
+    a, g = (x.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                  for p in x.placements])
+            if _is_dtensor(x) and any(p.is_partial() for p in x.placements)
+            else x for x in (a, g))
+    none = [Replicate()] * mesh.ndim
+    pa = list(a.placements) if _is_dtensor(a) else none
+    pg = list(g.placements) if _is_dtensor(g) else none
+    out = []
+    for md, (qa, qg) in enumerate(zip(pa, pg)):
+        feat_a = isinstance(qa, Shard) and qa.dim == 2
+        feat_g = isinstance(qg, Shard) and qg.dim == 2
+        if feat_a and feat_g:
+            raise ValueError(
+                f"ghost_norm: a and g are both sharded on their feature dims "
+                f"over mesh dim {md}; ||A^T G||^2 does not split into "
+                f"per-rank sums there (gather one of them first)")
+        if qa == qg and (qa.is_replicate() or qa == Shard(0)):
+            out.append(qa)
+        elif (feat_a and qg.is_replicate()) or (feat_g and qa.is_replicate()):
+            out.append(Partial())
+        else:
+            raise ValueError(f"ghost_norm: placements {qa} of a and {qg} of "
+                             f"g over mesh dim {md} do not split the norm")
+    la = a.to_local() if _is_dtensor(a) else a
+    lg = g.to_local() if _is_dtensor(g) else g
+    local = ghost_norm(la.contiguous(), lg.contiguous(),
+                       prefer_oracle=prefer_oracle)
+    norms = DTensor.from_local(local, mesh, out, run_check=False)
+    if any(p.is_partial() for p in out):
+        norms = norms.redistribute(
+            mesh, [Replicate() if p.is_partial() else p for p in out])
+    return norms
+
+
 def ghost_norm(a: torch.Tensor, g: torch.Tensor, *,
                prefer_oracle: bool = False) -> torch.Tensor:
     """a: [B,S,d_in]; g: [B,S,d_out] -> [B] float32 ghost norms^2."""
+    if _is_dtensor(a) or _is_dtensor(g):
+        return _ghost_norm_sharded(a, g, prefer_oracle)
     _check(a, g)
-    if a.device.type == "cpu":
+    if a.device.type in ("cpu", "meta"):
         return ghost_norm_ref(a, g) if prefer_oracle else \
             ghost_norm_blocked(a, g)
     if a.device.type != "cuda":

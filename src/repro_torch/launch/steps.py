@@ -17,8 +17,10 @@ A ``Program``'s ``args`` are meta tensors (``configs.shapes``,
 is allocated, at any width.  Each builder takes the ``device`` its
 program runs on where the reference takes a mesh, so a MoE arch routes
 its tokens as one group (the reference's ``moe_groups`` is the mesh's
-data axis, 1 on one card).  The reference's sharding ``policy`` and its
-sharding constraints belong with the multi-card work and are left out.
+data axis, 1 on one card).  ``device="meta"`` builds a shape-only
+program (its train step takes ``generator=None``): ``launch.dryrun``
+places the specs on a mesh as DTensors and runs it there, under the
+reference's sharding ``policy`` and activation rules.
 """
 
 from __future__ import annotations
@@ -62,14 +64,23 @@ def _to(device: torch.device, tree):
     return tree_map(lambda t: t.to(device, non_blocking=True), tree)
 
 
-def _one_group(cfg):
-    """One card is one data shard: a MoE arch routes as one token group."""
-    return cfg.replace(moe_groups=1) if cfg.n_experts else cfg
+def _device(device) -> torch.device:
+    """The program's device: the meta device for a shape-only program."""
+    return torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
+
+
+def _one_group(cfg, groups: int = 1):
+    """One card is one data shard: a MoE arch routes as one token group
+    (a mesh's dry run routes as ``groups``, the data extent, as the
+    reference does)."""
+    return cfg.replace(moe_groups=groups) if cfg.n_experts else cfg
 
 
 def build_train_program(cfg, shape_name: str, device=DEFAULT_DEVICE,
-                        dp_mode: str | None = None) -> Program:
-    device = resolve_device(device)
+                        dp_mode: str | None = None,
+                        moe_groups: int = 1) -> Program:
+    device = _device(device)
     cfg, batch_specs, kind = input_specs(cfg, shape_name)
     if kind != "train":
         raise ValueError(f"{shape_name} is a {kind} shape")
@@ -78,7 +89,7 @@ def build_train_program(cfg, shape_name: str, device=DEFAULT_DEVICE,
     mode = dp_mode or "per_example"     # the paper-faithful default
     if mode not in DP_MODES:
         raise ValueError(f"unknown dp_mode {mode!r} (one of {DP_MODES})")
-    cfg = _one_group(cfg)
+    cfg = _one_group(cfg, moe_groups)
 
     params_specs = tf.param_specs(cfg)
     opt = get_optimizer(cfg.optimizer, cfg.lr)
@@ -113,14 +124,14 @@ def build_train_program(cfg, shape_name: str, device=DEFAULT_DEVICE,
                    "train", cfg, meta)
 
 
-def build_prefill_program(cfg, shape_name: str, device=DEFAULT_DEVICE
-                          ) -> Program:
-    device = resolve_device(device)
+def build_prefill_program(cfg, shape_name: str, device=DEFAULT_DEVICE,
+                          moe_groups: int = 1) -> Program:
+    device = _device(device)
     cfg, batch_specs, kind = input_specs(cfg, shape_name)
     if kind != "prefill":
         raise ValueError(f"{shape_name} is a {kind} shape")
     shape = INPUT_SHAPES[shape_name]
-    cfg = _one_group(cfg)
+    cfg = _one_group(cfg, moe_groups)
 
     @torch.no_grad()
     def prefill(params, batch):
@@ -132,14 +143,14 @@ def build_prefill_program(cfg, shape_name: str, device=DEFAULT_DEVICE
                    cfg, meta)
 
 
-def build_decode_program(cfg, shape_name: str, device=DEFAULT_DEVICE
-                         ) -> Program:
-    device = resolve_device(device)
+def build_decode_program(cfg, shape_name: str, device=DEFAULT_DEVICE,
+                         moe_groups: int = 1) -> Program:
+    device = _device(device)
     cfg, specs, kind = input_specs(cfg, shape_name)
     if kind != "decode":
         raise ValueError(f"{shape_name} is a {kind} shape")
     shape = INPUT_SHAPES[shape_name]
-    cfg = _one_group(cfg)
+    cfg = _one_group(cfg, moe_groups)
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, index):
@@ -155,10 +166,12 @@ def build_decode_program(cfg, shape_name: str, device=DEFAULT_DEVICE
 
 
 def build_program(cfg, shape_name: str, device=DEFAULT_DEVICE,
-                  dp_mode: str | None = None) -> Program:
+                  dp_mode: str | None = None, moe_groups: int = 1
+                  ) -> Program:
     kind = INPUT_SHAPES[shape_name]["kind"]
     if kind == "train":
-        return build_train_program(cfg, shape_name, device, dp_mode)
+        return build_train_program(cfg, shape_name, device, dp_mode,
+                                   moe_groups)
     if kind == "prefill":
-        return build_prefill_program(cfg, shape_name, device)
-    return build_decode_program(cfg, shape_name, device)
+        return build_prefill_program(cfg, shape_name, device, moe_groups)
+    return build_decode_program(cfg, shape_name, device, moe_groups)

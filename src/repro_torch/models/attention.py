@@ -56,7 +56,11 @@ from repro_torch.models.layers import (
     rmsnorm,
     rope_angles,
     rotate,
+    placed_like,
+    shard,
     sin_cos,
+    split_dim,
+    split_last,
 )
 
 NEG_INF = -1e30
@@ -86,7 +90,7 @@ def gqa_init_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    return x.reshape(x.shape[:-1] + (n, hd))
+    return split_last(x, n, hd)
 
 
 def _sdpa(q, k, v, mask):
@@ -97,7 +101,7 @@ def _sdpa(q, k, v, mask):
     b, s, h, d = q.shape
     kvh = k.shape[2]
     group = h // kvh
-    qg = q.reshape(b, s, kvh, group, d)
+    qg = split_dim(q, 2, kvh, group)
     scores = torch.einsum("bskgd,blkd->bkgsl", qg.float(),
                           k.float()) / math.sqrt(d)
     if mask is not None:
@@ -152,7 +156,7 @@ def _sdpa_blocked(q, k, v, *, causal: bool = True, window: int | None = None,
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         l = k.shape[1]
-    qg = q.reshape(b, s, kvh, group, d).float() / math.sqrt(d)
+    qg = split_dim(q, 2, kvh, group).float() / math.sqrt(d)
     stats = (torch.full((b, kvh, group, s, 1), NEG_INF, device=q.device),
              torch.zeros((b, kvh, group, s, 1), device=q.device),
              torch.zeros((b, kvh, group, s, d), device=q.device))
@@ -193,6 +197,9 @@ def gqa_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     k = _split_heads(matmul(x, p["wk"]), kv, hd)
     v = _split_heads(matmul(x, p["wv"]), kv, hd)
     q, k = rope(q, k, positions, cfg, mrope_positions)
+    q = shard(q, "attn_batch", None, "heads", None)
+    k = shard(k, "attn_batch", None, None, None)
+    v = shard(v, "attn_batch", None, None, None)
     if cfg.use_flash:
         if causal and q.device.type == "cuda":
             # blocks of the whole sequence: the kernel's own tiles mask
@@ -252,8 +259,10 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
     # bfloat16 compute dtype, a pair the reference refuses to decode
     q = q.to(k_cache.dtype)
     rows = (torch.arange(b, device=x.device), index.long())
-    k_cache.index_put_(rows, k_new[:, 0].to(k_cache.dtype))
-    v_cache.index_put_(rows, v_new[:, 0].to(v_cache.dtype))
+    k_cache.index_put_(rows, placed_like(k_new[:, 0].to(k_cache.dtype),
+                                         k_cache[:, 0]))
+    v_cache.index_put_(rows, placed_like(v_new[:, 0].to(v_cache.dtype),
+                                         v_cache[:, 0]))
     if cfg.use_decode_kernel:
         out = decode_attention(q, k_cache, v_cache, index, window=window)
     else:
@@ -302,7 +311,7 @@ def _mla_q(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg
     b, s, _ = x.shape
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     ql = rmsnorm(matmul(x, p["w_dq"]), p["q_norm_scale"])
-    q = matmul(ql, p["w_uq"]).reshape(b, s, cfg.n_heads, dn + dr)
+    q = split_last(matmul(ql, p["w_uq"]), cfg.n_heads, dn + dr)
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
 
@@ -325,8 +334,8 @@ def mla_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     q_nope, q_rope = _mla_q(p, x, positions, cfg)
     c, kr = _mla_latents(p, x, positions, cfg)
-    k_nope = matmul(c, p["w_uk"]).reshape(b, s, h, dn)
-    v = matmul(c, p["w_uv"]).reshape(b, s, h, dv)
+    k_nope = split_last(matmul(c, p["w_uk"]), h, dn)
+    v = split_last(matmul(c, p["w_uv"]), h, dv)
     scores = (torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
               + torch.einsum("bshd,btd->bhst", q_rope.float(), kr.float())
               ) * (1.0 / math.sqrt(dn + dr))
@@ -369,8 +378,8 @@ def mla_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
     q_nope, q_rope = _mla_q(p, x, pos, cfg)                    # [B,1,H,dn/dr]
     c_new, kr_new = _mla_latents(p, x, pos, cfg)               # [B,1,dc/dr]
     rows = (torch.arange(b, device=x.device), index.long())
-    c.index_put_(rows, c_new[:, 0].to(c.dtype))
-    kr.index_put_(rows, kr_new[:, 0].to(kr.dtype))
+    c.index_put_(rows, placed_like(c_new[:, 0].to(c.dtype), c[:, 0]))
+    kr.index_put_(rows, placed_like(kr_new[:, 0].to(kr.dtype), kr[:, 0]))
     w_uk = p["w_uk"].reshape(dc, h, dn)
     w_uv = p["w_uv"].reshape(dc, h, dv)
     dt = torch.promote_types(q_nope.dtype, w_uk.dtype)

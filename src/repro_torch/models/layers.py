@@ -2,15 +2,21 @@
 and Whisper's sinusoidal positions.
 
 Counterpart of ``repro.models.layers``.  The port keeps its parameters in
-plain dicts of tensors under its own short names; ``pname`` stays so that
-``repro_torch.convert`` can spell the reference's axis-encoded keys
-(``"wq|embed,qheads"``).  ``shard`` is left out: without a mesh the
-reference's is the identity.
+plain dicts of tensors under its own short names; ``pname`` and
+``logical_axes`` stay so that ``repro_torch.convert`` can spell the
+reference's axis-encoded keys (``"wq|embed,qheads"``) and
+``launch.sharding`` can read the logical axes back out of them.
+
+``shard(x, *axes)`` is the reference's activation hint.  Without rules
+(``activation_sharding``) or on a plain tensor it returns ``x`` itself, so
+nothing on a one-card path changes; on a DTensor under rules it
+redistributes ``x`` to the placements the reference's rule gives.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +25,115 @@ import torch.nn.functional as F
 def pname(name: str, *axes: str) -> str:
     """Encode logical axes into a parameter key, as the reference does."""
     return f"{name}|{','.join(axes)}"
+
+
+def logical_axes(key: str, ndim: int) -> tuple[str, ...]:
+    """Decode logical axes from a param key; prepend 'layers' for stacked."""
+    if "|" not in key:
+        axes: tuple[str, ...] = ()
+    else:
+        axes = tuple(a for a in key.split("|")[1].split(",") if a)
+    if len(axes) < ndim:  # stacked leaves (a leading layers axis)
+        axes = ("layers",) * (ndim - len(axes)) + axes
+    return axes
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding: hints are the identity without an active rule set.
+# ---------------------------------------------------------------------------
+
+# Per thread: the serve trainer thread and the decode loop both run models
+# concurrently, and one thread's rules must not leak into the other's.
+_SHARDING = threading.local()
+
+
+class activation_sharding:
+    """Context manager installing logical->mesh rules for activation hints
+    (``launch.sharding.activation_rules``)."""
+
+    def __init__(self, rules: dict | None):
+        self.rules = rules
+
+    def __enter__(self):
+        self._prev = getattr(_SHARDING, "rules", None)
+        _SHARDING.rules = self.rules
+        return self
+
+    def __exit__(self, *exc):
+        _SHARDING.rules = self._prev
+        return False
+
+
+def activation_spec(shape, axes, rules: dict) -> tuple:
+    """The reference's hint rule as a spec: mesh axes may appear in at most
+    one position (earlier logical axes win) and a dim its mesh extent does
+    not divide is replicated."""
+    names = rules["__mesh__"].mesh_dim_names
+    used: set = set()
+    entries = []
+    for dim, a in zip(shape, axes):
+        mesh_ax = rules.get(a) if a else None
+        flat = tuple(mesh_ax) if isinstance(mesh_ax, tuple) else (mesh_ax,)
+        size = math.prod(rules["__mesh__"].size(names.index(m))
+                         for m in flat if m) if mesh_ax else 1
+        if mesh_ax is None or any(m in used for m in flat) or dim % size:
+            entries.append(None)
+        else:
+            entries.append(mesh_ax)
+            used.update(flat)
+    return tuple(entries)
+
+
+def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
+    """Hint activation ``x``'s logical axes (identity without rules or on
+    a plain tensor): a DTensor is redistributed to the placements of
+    ``activation_spec``."""
+    rules = getattr(_SHARDING, "rules", None)
+    if rules is None or not hasattr(x, "placements"):
+        return x
+    from repro_torch.launch.sharding import to_placements  # rules only
+
+    mesh = rules["__mesh__"]
+    placements = to_placements(activation_spec(x.shape, axes, rules), mesh)
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def placed_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``ref``'s placements where both are DTensors (a value about
+    to be written into ``ref`` in place, which DTensor cannot reshard);
+    ``x`` itself otherwise."""
+    if hasattr(x, "placements") and hasattr(ref, "placements") and \
+            tuple(x.placements) != tuple(ref.placements):
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
+
+
+def split_dim(x: torch.Tensor, dim: int, n: int, rest: int) -> torch.Tensor:
+    """``x`` with dim ``dim`` (of size n * rest) split into (n, rest): a
+    view of a plain tensor.
+
+    A DTensor whose ``dim`` a mesh dim splits into a number of blocks
+    that does not divide ``n`` is first made whole over that mesh dim:
+    the split heads could not be sharded evenly (smollm's 15 heads over 2
+    model ranks), where GSPMD reshards without being asked and DTensor
+    refuses the view."""
+    dim %= x.ndim
+    if hasattr(x, "placements"):
+        from torch.distributed.tensor import Replicate
+
+        mesh = x.device_mesh
+        keep = [Replicate() if p.is_shard(dim) and n % mesh.size(md) else p
+                for md, p in enumerate(x.placements)]
+        if keep != list(x.placements):
+            x = x.redistribute(mesh, keep)
+    return x.reshape(x.shape[:dim] + (n, rest) + x.shape[dim + 1:])
+
+
+def split_last(x: torch.Tensor, n: int, rest: int) -> torch.Tensor:
+    """``x`` [..., n * rest] as [..., n, rest] (``split_dim``)."""
+    return split_dim(x, -1, n, rest)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -182,6 +297,7 @@ def ffn_apply(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = _act(kind, matmul(x, p["w_gate"])) * up
     else:
         h = _act(kind, up)
+    h = shard(h, "batch", None, "mlp")
     return matmul(h, p["w_down"])
 
 

@@ -38,7 +38,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, matmul
+from repro_torch.models.layers import dense_init, matmul, shard
 
 
 def moe_init(cfg, dtype: torch.dtype, generator: torch.Generator | None,
@@ -132,14 +132,18 @@ def _experts(buf: torch.Tensor, p: dict) -> torch.Tensor:
     expert's [D, F] and [F, D]), in the promoted dtype, as ``jnp.einsum``
     computes them.
     """
+    buf = shard(buf, "batch", "experts", None, None)
     g, e, c, d = buf.shape
     dt = functools.reduce(torch.promote_types, (
         buf.dtype, p["w_gate"].dtype, p["w_up"].dtype, p["w_down"].dtype))
     rows = buf.to(dt).transpose(0, 1).reshape(e, g * c, d)
     gate = torch.bmm(rows, p["w_gate"].to(dt))
     up = torch.bmm(rows, p["w_up"].to(dt))
-    y = torch.bmm(F.silu(gate) * up, p["w_down"].to(dt))
-    return y.reshape(e, g, c, d).transpose(0, 1)
+    # the reference's [G, E, C, F] hint on the rows' [E, G*C, F] layout
+    h = shard(F.silu(gate) * up, "experts", None, None)
+    y = torch.bmm(h, p["w_down"].to(dt))
+    return shard(y.reshape(e, g, c, d).transpose(0, 1), "batch", "experts",
+                 None, None)
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg, *, groups: int | None = None,

@@ -36,7 +36,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, init_device, matmul
+from repro_torch.models.layers import (dense_init, init_device, matmul, shard,
+                                       split_last)
 
 
 def _draw(t: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
@@ -153,6 +154,7 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     ds = cfg.mamba_d_state
     xz = matmul(x, p["w_in"])
     xi, z = xz[..., :di], xz[..., di:]
+    xi = shard(xi, "batch", None, "mlp")
     xi = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
     bcdt = matmul(xi, p["w_bcdt"])
     b, c = bcdt[..., :ds], bcdt[..., ds:2 * ds]
@@ -304,14 +306,13 @@ def _rwkv_proj(p: dict, x: torch.Tensor, x_prev: torch.Tensor, cfg):
     xs = x * mix + x_prev * (1.0 - mix)                          # [5,B,S,D]
     hs = cfg.rwkv_head_size
     nh = cfg.d_model // hs
-    heads = (*x.shape[:-1], nh, hs)
-    r = matmul(xs[0], p["w_r"]).reshape(heads)
-    k = matmul(xs[1], p["w_k"]).reshape(heads)
-    v = matmul(xs[2], p["w_v"]).reshape(heads)
+    r = split_last(matmul(xs[0], p["w_r"]), nh, hs)
+    k = split_last(matmul(xs[1], p["w_k"]), nh, hs)
+    v = split_last(matmul(xs[2], p["w_v"]), nh, hs)
     g = F.silu(matmul(xs[3], p["w_g"]))
     dec = p["decay_w0"] + matmul(torch.tanh(matmul(xs[4], p["decay_wa"])),
                                  p["decay_wb"])
-    w = torch.exp(-torch.exp(dec.float())).reshape(heads)
+    w = split_last(torch.exp(-torch.exp(dec.float())), nh, hs)
     return r, k, v, g, w
 
 

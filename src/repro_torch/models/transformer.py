@@ -93,6 +93,7 @@ from repro_torch.models.layers import (
     make_norm,
     make_norm_bias,
     matmul,
+    shard,
     sinusoidal_positions,
     trunc_normal,
 )
@@ -384,12 +385,14 @@ def _hidden(cfg, params: dict, batch: dict) -> tuple[torch.Tensor,
                if cfg.is_encoder_decoder else None)
     tokens = batch["tokens"].long()
     x = prefix_vision(cfg, params["embed"][tokens].to(cfg.cdtype), batch)
+    x = shard(x, "batch", "seq", None)
     b, s, _ = x.shape
     positions, mrope_positions = positions_of(cfg, batch, b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p in layers_of(cfg, params):
         x, a = _layer_apply(cfg, spec, p, x, positions, mrope_positions,
                             enc_out)
+        x = shard(x, "batch", "seq", None)
         if a is not None:
             aux = aux + a
     return _norm(cfg, params, "final_norm", x), aux
@@ -405,7 +408,8 @@ def forward(cfg, params: dict, batch: dict) -> tuple[torch.Tensor,
     load-balance loss, 0 for dense stacks.
     """
     x, aux = _hidden(cfg, params, batch)
-    return matmul(x, head_of(cfg, params).to(cfg.cdtype)), aux
+    logits = matmul(x, head_of(cfg, params).to(cfg.cdtype))
+    return shard(logits, "batch", "seq", "vocab"), aux
 
 
 def _masked_nll(logits: torch.Tensor, labels: torch.Tensor
@@ -415,8 +419,11 @@ def _masked_nll(logits: torch.Tensor, labels: torch.Tensor
     mask = (labels >= 0).float()
     lf = logits.float()
     logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
-    return (logz - gold) * mask, mask
+    # subtracted before the gathered axis is dropped: a vocab-sharded
+    # DTensor's gather is a pending masked sum that DTensor can only
+    # reduce in the gathered shape (the same numbers on a plain tensor)
+    gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])
+    return (logz[..., None] - gold)[..., 0] * mask, mask
 
 
 def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

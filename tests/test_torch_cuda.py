@@ -91,6 +91,23 @@ def test_ghost_norm_kernel_matches_plain(dev, b, s, din, dout, dtype):
 
 
 @pytest.mark.parametrize("dtype", GHOST_DTYPES)
+@pytest.mark.parametrize("split", ["columns", "rows"])
+def test_ghost_norm_on_split_shards_sums_to_the_whole(dev, split, dtype):
+    """The shard backend's model axis: the kernel on each rank's column
+    block of g (or row block of A^T, a's columns), summed over the
+    blocks, is the kernel on the whole (||A^T G||^2 splits by blocks)."""
+    a, g = _ghost_inputs(dev, 16, 256, 960, 2560, dtype)
+    whole = ghost_ops.ghost_norm(a, g)
+    parts = (torch.chunk(g, 2, dim=2) if split == "columns"
+             else torch.chunk(a, 2, dim=2))
+    total = sum(ghost_ops.ghost_norm(a, p.contiguous()) if split == "columns"
+                else ghost_ops.ghost_norm(p.contiguous(), g) for p in parts)
+    torch.testing.assert_close(total, whole, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(total, ghost_ops.ghost_norm_blocked(a, g),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", GHOST_DTYPES)
 @pytest.mark.parametrize("b,s,din,dout", [(1, 64, 4096, 4096),
                                           (2, 130, 960, 2560),
                                           (1, 200, 3000, 777)])

@@ -398,7 +398,8 @@ def test_backend_info_is_the_references():
     ours = backends.backend_registry()["population"]
     ref = jbackends.backend_registry()["population"]
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
-    assert backends.backend_names() == ("ideal", "population", "sim")
+    assert backends.backend_names() == ("ideal", "population", "shard",
+                                        "sim")
 
 
 @pytest.mark.parametrize("backend", ["ideal", "sim"])

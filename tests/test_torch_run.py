@@ -70,13 +70,17 @@ def test_list_and_smoke_return_0(capsys):
     assert run.main(["--list"]) == 0
     listed = capsys.readouterr().out
     assert "decaph" in listed and "secagg=True" in listed
-    # the arms as the reference lists them, and the three registered
-    # backends, population's line as the reference's
+    # the arms as the reference lists them, and the four registered
+    # backends, population's line as the reference's; shard names what it
+    # needs (this process joins no group)
     assert listed.splitlines()[:9] == jrun_list()[:9]
     backend_lines = listed.split("backends:\n")[1].splitlines()
     assert [l.split()[0] for l in backend_lines] == ["ideal", "population",
-                                                     "sim"]
-    assert "sim_time=True group=host" in backend_lines[2]
+                                                     "shard", "sim"]
+    assert "sim_time=True group=host" in backend_lines[3]
+    assert "group=spmd" in backend_lines[2]
+    assert "unavailable here: needs a torch.distributed process group" in \
+        backend_lines[2]
     assert backend_lines[1] in jrun_list()
     assert run.main(["--smoke", "--device", "cpu"]) == 0
     out = capsys.readouterr().out

@@ -1,8 +1,8 @@
 """``repro_torch.scenarios`` against ``repro.scenarios``.
 
 Specs, presets and sweeps are the reference's: every preset and every cell
-both registries share has the reference's ``spec_hash()`` (the port's
-``backend-matrix`` lacks only the ``shard`` cells), JSON round-trips, and
+both registries share has the reference's ``spec_hash()`` (the
+``backend-matrix`` sweep's ``shard`` cells too), JSON round-trips, and
 validation fails with the reference's messages.  The cache serves hits
 without the executor and recomputes corrupt or foreign entries.
 ``run_spec`` gives the reference's metrics rows: on ``gemini-small``
@@ -55,15 +55,13 @@ def test_preset_hash_is_the_references(name):
 def test_sweep_cells_hash_as_the_references(sweep):
     ours = {s.name: s.spec_hash() for s in sc.get_sweep(sweep).specs()}
     ref = {s.name: s.spec_hash() for s in jsc.get_sweep(sweep).specs()}
-    assert ours.items() <= ref.items()
-    missing = set(ref) - set(ours)
+    assert ours == ref
     if sweep == "backend-matrix":
-        # the port's registry has no shard backend (ROADMAP.md, Queue 1)
-        assert missing == {n for n in ref if "backend=shard" in n} != set()
-        assert sc.get_sweep(sweep).axes["backend"] == ["ideal", "population",
-                                                       "sim"]
-    else:
-        assert not missing
+        # the backend axis is the live registry, the reference's own
+        assert {n for n in ours if "backend=shard" in n} != set()
+        assert sc.get_sweep(sweep).axes["backend"] == \
+            jsc.get_sweep(sweep).axes["backend"] == ["ideal", "population",
+                                                     "shard", "sim"]
 
 
 def test_spec_json_roundtrip_and_labels():
@@ -111,8 +109,8 @@ def test_spec_validation_matches_reference(bad):
         jsc.ScenarioSpec.from_dict(bad)
     with pytest.raises(ValueError) as ours:
         sc.ScenarioSpec.from_dict(bad)
-    # the backend list is the live registry: the reference's has "shard"
-    assert str(ours.value) == str(ref.value).replace(", shard", "")
+    # the backend list is the live registry, the reference's own
+    assert str(ours.value) == str(ref.value)
 
 
 # -- the result cache --------------------------------------------------------
@@ -348,11 +346,10 @@ def test_cli_list_is_the_references(capsys):
     ours = capsys.readouterr().out.splitlines()
     assert jcli.main(["--list"]) == 0
     ref = capsys.readouterr().out.splitlines()
-    differ = [(a, b) for a, b in zip(ours, ref) if a != b]
-    # only the backend axis of backend-matrix differs: no shard cells
-    assert len(ours) == len(ref) and len(differ) == 1
-    assert differ[0][0].split()[0] == "backend-matrix"
-    assert "backendx3" in differ[0][0] and "backendx4" in differ[0][1]
+    # backend-matrix's backend axis holds shard, as the reference's does
+    assert ours == ref
+    assert any(line.split()[0] == "backend-matrix" and "backendx4" in line
+               for line in ours if line.split())
 
 
 def test_cli_run_writes_torch_artifacts_and_caches(tmp_path, monkeypatch,

@@ -188,7 +188,8 @@ def test_ideal_and_sim_agree_bit_for_bit(setup, case):
     links give ``sim`` the ``ideal`` trajectory exactly (payload sums are
     the same ascending fold on the same device; with SecAgg both sessions'
     masks cancel in the same field sum)."""
-    assert backends.bit_exact_groups() == {"host": ("ideal", "sim")}
+    assert backends.bit_exact_groups() == {"host": ("ideal", "sim"),
+                                           "spmd": ("shard",)}
     name, kw = case
     c = cfg(0.8, **kw)
     kind = arms.get(name).topology_kind
@@ -296,15 +297,34 @@ def test_sim_refuses_what_it_cannot_run(setup):
         arms.run("fl", setup["tmodel"], setup["tsilos"], cfg(),
                  backend="sim", nodes=sim.nodes_from_trace(
                      sim.heterogeneous_trace(H - 1)))
-    with pytest.raises(ValueError, match="item 7"):
-        arms.run("fl", setup["tmodel"], setup["tsilos"], cfg(),
-                 backend="shard")
     # the fused-only population backend refuses a node arm, as the
     # reference's does
     with pytest.raises(ValueError, match="only executes fused-capable round "
                                          "arms; arm 'gossip'"):
         arms.run("gossip", setup["tmodel"], setup["tsilos"], cfg(),
                  backend="population")
-    with pytest.raises(KeyError,
-                       match="registered backends: ideal, population, sim"):
+    with pytest.raises(KeyError, match="registered backends: ideal, "
+                                       "population, shard, sim"):
         backends.get_backend("tpu")
+
+
+# the reference's refusals of the shard backend (tests/test_backends.py),
+# each with its message: the arm/config rules before any compute, and the
+# missing process group (this process joins none) at construction
+SHARD_REFUSALS = [
+    ("secagg", "decaph", {"use_secagg": True}, ValueError, "SecAgg"),
+    ("node-arm", "gossip", {}, ValueError, "fused-capable round arms"),
+    ("loop", "decaph", {"fused_rounds": False}, ValueError,
+     "fused_rounds=False"),
+    ("no-group", "decaph", {}, RuntimeError,
+     "backend 'shard' unavailable: needs a torch.distributed process group"),
+]
+
+
+@pytest.mark.parametrize("case", SHARD_REFUSALS, ids=lambda c: c[0])
+def test_shard_refuses_what_it_cannot_run(setup, case):
+    _, arm, kw, error, message = case
+    assert backends.availability("shard") is not None
+    with pytest.raises(error, match=message):
+        arms.run(arm, setup["tmodel"], setup["tsilos"], cfg(**kw),
+                 backend="shard")
