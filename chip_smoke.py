@@ -353,11 +353,13 @@ script exits non-zero, printing no result:
      plain version at phase 3's limit; every rank's launches go to the
      kernels line; per rank the peak memory, the round walls and the
      collectives' bytes and seconds by kind (host-staged, not NVLink).
-     The dry run of SmolLM-360M x ``prefill_32k`` on the (16, 16) mesh of
-     a ``fake`` group (``python -m repro_torch.launch.dryrun``, on the
-     CPU; ``train_4k``'s does not run on the card machine's torch 2.11,
-     ROADMAP.md Queue 3): its lower time, FLOPs, collective bytes and
-     bottleneck.
+     The dry run (``python -m repro_torch.launch.dryrun``, meta DTensors
+     on a ``fake`` group, on the CPU under the card machine's torch), one
+     process a cell started with the phase: SmolLM-360M ``train_4k``
+     (per-example DP) on (4, 2), OLMo-1B ``train_4k`` on (2, 2, 2),
+     SmolLM-360M ``decode_32k`` on (4, 2) and SmolLM-360M ``prefill_32k``
+     on the (16, 16) mesh: each one's FLOPs, collective bytes, bottleneck
+     and trace seconds; the phase fails if one exits non-zero.
 
 Artifacts and caches of phases 18–19, 25 and 26 go into temp dirs under
 ``build/``.
@@ -5021,12 +5023,14 @@ SHARD_LM_MESH = ((1, 2, 2), ("pod", "data", "model"))
 # and bf16 products summed over the model axis in another order missed it
 # (9.0e-5 at 8 layers, run 1, PR 25)
 SHARD_LM = dict(TRAIN, rounds=2, n_layers=4)
-# the dry run on the card's machine: train_4k's programs stop there at the
-# head split under torch.func (torch 2.11's DTensor refuses the uneven view,
-# and the wrappers hide its placements from layers.split_dim; ROADMAP.md
-# Queue 3), so the phase traces the prefill program; the CPU tests trace
-# train_4k on torch 2.13
-SHARD_DRY = ("smollm-360m", "prefill_32k")
+# the dry run on the card's machine's torch, one process a cell, started
+# with the phase and run beside (a) and (b): the reference's first two
+# train cells (per_example, the paper-faithful default), the GQA decode
+# over a split KV cache, and the (16, 16) production mesh's prefill
+SHARD_DRY = (("smollm-360m", "train_4k", "4,2"),
+             ("olmo-1b", "train_4k", "2,2,2"),
+             ("smollm-360m", "decode_32k", "4,2"),
+             ("smollm-360m", "prefill_32k", None))
 SHARD_TIMEOUT_S = 400
 
 
@@ -5178,106 +5182,145 @@ def _say_ranks(cell: str, ranks: list, smi: str) -> None:
             f"host-staged, not NVLink): {comm} on {smi}")
 
 
-def _dry_run_proc(tmp: Path) -> subprocess.Popen:
-    arch, shape = SHARD_DRY
-    return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--out", str(tmp / "dryrun")],
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+def _dry_run_procs(tmp: Path) -> list:
+    """One ``python -m repro_torch.launch.dryrun`` a cell of ``SHARD_DRY``,
+    started at once (stdout and stderr to files: nothing waits on a
+    pipe)."""
+    procs = []
+    for i, (arch, shape, mesh) in enumerate(SHARD_DRY):
+        out = tmp / f"dryrun{i}"
+        out.mkdir()
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", shape, "--out", str(out)]
+        if mesh:
+            argv += ["--mesh", mesh]
+        if shape == "train_4k":
+            argv += ["--dp-mode", "per_example"]
+        with open(out / "log", "w") as log:
+            procs.append((out, subprocess.Popen(
+                argv, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                stdout=log, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def _dry_run_results(procs: list) -> None:
+    """Wait for each dry-run cell, print its record, and fail the phase if
+    one exited non-zero (every process is ended first)."""
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    failed = []
+    for (arch, shape, _), (out, proc) in zip(SHARD_DRY, procs):
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        if proc.returncode != 0:
+            failed.append(f"{arch} x {shape} exited {proc.returncode}:\n"
+                          + (out / "log").read_text()[-2000:])
+            continue
+        rec = json.loads(next(out.glob("*.json")).read_text())
+        terms = rec["roofline"]
+        say(f"phase 26 dry run {arch} x {shape} on {rec['mesh']} "
+            f"({rec['n_chips']} fake ranks, CPU, torch {torch.__version__},"
+            f" nothing allocated, dp_mode "
+            f"{rec['meta'].get('dp_mode', '-')}): flops {rec['flops']:.4e}, "
+            f"collective bytes {rec['collective_bytes']:.4e}, bottleneck "
+            f"{terms['bottleneck']}, traced in {rec['trace_s']:.1f} s")
+    if failed:
+        raise AssertionError("phase 26 dry run: " + "\n".join(failed))
 
 
 def shard_path(dev, smi) -> dict:
     """Phase 26: the shard backend on ranks that share the card over gloo
     (NCCL refuses two ranks on one device), against the port's ideal;
-    the dry run of SmolLM-360M x train_4k on the (16, 16) mesh."""
+    the dry run of ``SHARD_DRY``'s cells on fake meshes, beside it."""
     say("phase 26: ranks share the one card, so the group is gloo (NCCL "
         "refuses two ranks on one device); every collective is staged "
         "through host memory, so its bytes and seconds are the host's, "
         "not NVLink's")
     with tempfile.TemporaryDirectory(prefix="shard-", dir=ROOT / "build") as d:
         tmp = Path(d)
-        dry = _dry_run_proc(tmp)
-        # ideal's runs in this process first: (a) GEMINI DeCaPH, (b)
-        # SmolLM-360M; then both cells' ranks at once ((a)'s are light)
-        model, silos, cfg = _shard_gemini()
-        ideal = arms.run("decaph", model, silos, cfg)
-        gemini_params = [t.detach().cpu() for t in tree_leaves(ideal.params)]
-        gemini_eps = ideal.epsilon
-        model, silos, cfg = _shard_lm()
-        initial = dict(enumerate(t.detach().cpu() for t in
-                                 tree_leaves(model.init_fn(SEED))))
-        t0 = time.perf_counter()
-        ideal = arms.run("decaph", model, silos, cfg)
-        ideal_s = time.perf_counter() - t0
-        ideal_params = dict(enumerate(t.detach().cpu()
-                                      for t in tree_leaves(ideal.params)))
-        del model, ideal
-        torch.cuda.empty_cache()
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
-            cell_a = pool.submit(_shard_ranks, "gemini", SHARD_GEMINI_RANKS,
-                                 tmp)
-            cell_b = pool.submit(_shard_ranks, "lm",
-                                 math.prod(SHARD_LM_MESH[0]), tmp)
-            ranks = cell_a.result()
-            lm_ranks = cell_b.result()
-        # (a) on 2 ranks ("data",), against ideal
-        got = _shard_params(tmp, "gemini")
-        diff = max(float((a - b).abs().max())
-                   for a, b in zip(gemini_params, got.values()))
-        eps = {r["epsilon"] for r in ranks}
-        ok = (diff <= 1e-5 and eps == {gemini_eps}
-              and all(r["sharded_puts"] > 0 for r in ranks))
-        _say_ranks("gemini", ranks, smi)
-        say(f"phase 26 (a) GEMINI DeCaPH, 8 hospitals, 2 ranks ('data',): "
-            f"max|shard - ideal| {diff:.3e} (limit 1e-5), eps {eps} vs "
-            f"ideal {gemini_eps}, sharded_puts "
-            f"{[r['sharded_puts'] for r in ranks]} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("phase 26 (a): shard disagrees with ideal")
-        # (b) SmolLM-360M at full width on (1, 2, 2), against ideal
-        ranks = lm_ranks
-        got = _shard_params(tmp, "lm")
-        l2, upd = _update_l2(initial, got, ideal_params)
-        bound = 2 * TRAIN["lr"] * TRAIN["clip"] * 1e-4
-        launches = sum(r["launches"] for r in ranks)
-        peak = sum(r["peak_bytes"] for r in ranks)
-        ok = (l2 <= bound and all(r["participant_shards"] > 0
-                                  and r["param_shards"] > 0 for r in ranks)
-              and launches > 0 and peak < 80e9
-              and len({r["epsilon"] for r in ranks}) == 1)
-        _say_ranks("lm", ranks, smi)
-        say(f"phase 26 (b) SmolLM-360M full width, {SHARD_LM['n_layers']} "
-            f"layers, float32 (untied, 4 hospitals x "
-            f"{TRAIN['n_per']} x {TRAIN['seq_len']}, ghost, "
-            f"{SHARD_LM['rounds']} rounds) on {SHARD_LM_MESH[0]} "
-            f"{SHARD_LM_MESH[1]}: |update - ideal's update| {l2:.3e} "
-            f"(bound 2 lr C 1e-4 = {bound:.1e}; ideal's update {upd:.3e}, "
-            f"ideal's run {ideal_s:.1f} s in one process), "
-            f"participant_shards {[r['participant_shards'] for r in ranks]}, "
-            f"param_shards {[r['param_shards'] for r in ranks]}, ghost_norm "
-            f"launches {[r['launches'] for r in ranks]} (sum {launches}), "
-            f"local-shard kernel vs plain max|err| {ranks[0]['local_err']:.3e},"
-            f" summed peak {peak / 1e9:.3f} GB of 80 "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("phase 26 (b): shard outside its bound, or "
-                                 "a counter or the memory is off")
-        out, err = dry.communicate(timeout=SHARD_TIMEOUT_S)
-        if dry.returncode != 0:
-            raise AssertionError(f"phase 26 dry run exited {dry.returncode}:"
-                                 f"\n{err[-3000:]}")
-        rec = json.loads(next((tmp / "dryrun").glob("*.json")).read_text())
-        terms = rec["roofline"]
-        lower = max(terms["compute_s"], terms["memory_s"],
-                    terms["collective_s"])
-        say(f"phase 26 dry run {SHARD_DRY[0]} x {SHARD_DRY[1]} on "
-            f"{rec['mesh']} ({rec['n_chips']} fake ranks, CPU, nothing "
-            f"allocated): lower time {lower:.4f} s at the H100's peaks, "
-            f"flops {rec['flops']:.4e}, collective bytes "
-            f"{rec['collective_bytes']:.4e}, bottleneck "
-            f"{terms['bottleneck']}, traced in {rec['trace_s']:.1f} s")
+        dry = _dry_run_procs(tmp)
+        try:
+            launches = _shard_cells(tmp, dry, smi)
+        finally:
+            for _, proc in dry:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     return {"ghost_norm": launches}
+
+
+def _shard_cells(tmp: Path, dry: list, smi) -> int:
+    """Phase 26's cells (a) and (b), then the dry runs' results; -> the
+    ghost_norm launches of (b)."""
+    # ideal's runs in this process first: (a) GEMINI DeCaPH, (b)
+    # SmolLM-360M; then both cells' ranks at once ((a)'s are light)
+    model, silos, cfg = _shard_gemini()
+    ideal = arms.run("decaph", model, silos, cfg)
+    gemini_params = [t.detach().cpu() for t in tree_leaves(ideal.params)]
+    gemini_eps = ideal.epsilon
+    model, silos, cfg = _shard_lm()
+    initial = dict(enumerate(t.detach().cpu() for t in
+                             tree_leaves(model.init_fn(SEED))))
+    t0 = time.perf_counter()
+    ideal = arms.run("decaph", model, silos, cfg)
+    ideal_s = time.perf_counter() - t0
+    ideal_params = dict(enumerate(t.detach().cpu()
+                                  for t in tree_leaves(ideal.params)))
+    del model, ideal
+    torch.cuda.empty_cache()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        cell_a = pool.submit(_shard_ranks, "gemini", SHARD_GEMINI_RANKS,
+                             tmp)
+        cell_b = pool.submit(_shard_ranks, "lm",
+                             math.prod(SHARD_LM_MESH[0]), tmp)
+        ranks = cell_a.result()
+        lm_ranks = cell_b.result()
+    # (a) on 2 ranks ("data",), against ideal
+    got = _shard_params(tmp, "gemini")
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(gemini_params, got.values()))
+    eps = {r["epsilon"] for r in ranks}
+    ok = (diff <= 1e-5 and eps == {gemini_eps}
+          and all(r["sharded_puts"] > 0 for r in ranks))
+    _say_ranks("gemini", ranks, smi)
+    say(f"phase 26 (a) GEMINI DeCaPH, 8 hospitals, 2 ranks ('data',): "
+        f"max|shard - ideal| {diff:.3e} (limit 1e-5), eps {eps} vs "
+        f"ideal {gemini_eps}, sharded_puts "
+        f"{[r['sharded_puts'] for r in ranks]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 26 (a): shard disagrees with ideal")
+    # (b) SmolLM-360M at full width on (1, 2, 2), against ideal
+    ranks = lm_ranks
+    got = _shard_params(tmp, "lm")
+    l2, upd = _update_l2(initial, got, ideal_params)
+    bound = 2 * TRAIN["lr"] * TRAIN["clip"] * 1e-4
+    launches = sum(r["launches"] for r in ranks)
+    peak = sum(r["peak_bytes"] for r in ranks)
+    ok = (l2 <= bound and all(r["participant_shards"] > 0
+                              and r["param_shards"] > 0 for r in ranks)
+          and launches > 0 and peak < 80e9
+          and len({r["epsilon"] for r in ranks}) == 1)
+    _say_ranks("lm", ranks, smi)
+    say(f"phase 26 (b) SmolLM-360M full width, {SHARD_LM['n_layers']} "
+        f"layers, float32 (untied, 4 hospitals x "
+        f"{TRAIN['n_per']} x {TRAIN['seq_len']}, ghost, "
+        f"{SHARD_LM['rounds']} rounds) on {SHARD_LM_MESH[0]} "
+        f"{SHARD_LM_MESH[1]}: |update - ideal's update| {l2:.3e} "
+        f"(bound 2 lr C 1e-4 = {bound:.1e}; ideal's update {upd:.3e}, "
+        f"ideal's run {ideal_s:.1f} s in one process), "
+        f"participant_shards {[r['participant_shards'] for r in ranks]}, "
+        f"param_shards {[r['param_shards'] for r in ranks]}, ghost_norm "
+        f"launches {[r['launches'] for r in ranks]} (sum {launches}), "
+        f"local-shard kernel vs plain max|err| {ranks[0]['local_err']:.3e},"
+        f" summed peak {peak / 1e9:.3f} GB of 80 "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 26 (b): shard outside its bound, or "
+                             "a counter or the memory is off")
+    _dry_run_results(dry)
+    return launches
 
 
 # -- main -----------------------------------------------------------------------

@@ -47,6 +47,7 @@ def make_train_step(
     cfg: DeCaPHStepConfig,
     ghost_grad_sum: Callable[[Tree, Tree], tuple[Tree, torch.Tensor]]
     | None = None,
+    trace_repeat: Callable | None = None,
 ):
     """Build ``train_step(params, opt_state, batch, generator) ->
     (params', opt_state', metrics)``.
@@ -60,6 +61,8 @@ def make_train_step(
       cfg: the step's config (clip norm, sigma and microbatch in cfg.dp).
       ghost_grad_sum: (params, batch) -> (clipped gradient sum, mean
         loss), with per-example norms by ghost clipping (mode "ghost").
+      trace_repeat: a shape-only trace's counter (mode "per_example";
+        ``dp.per_example_clipped_grad_sum``'s).
 
     The batch's leading axis is the example axis; ``generator`` draws the
     aggregate noise (unused in mode "none").
@@ -77,6 +80,7 @@ def make_train_step(
                     clip_norm=cfg.dp.clip_norm,
                     microbatch_size=cfg.dp.microbatch_size,
                     accum_dtype=cfg.accum_dtype,
+                    trace_repeat=trace_repeat,
                 )
             # the aggregate noise draw (== the sum of H participant shares)
             g_sum = dp_lib.tree_add_noise(

@@ -19,6 +19,7 @@ following the same law (ROADMAP.md, Queue 3).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable
@@ -26,6 +27,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.models.placement import rows
 from repro_torch.tree import Tree, tree_leaves, tree_map, tree_unflatten
 
 
@@ -69,6 +71,7 @@ def per_example_clipped_grad_sum(
     mask: torch.Tensor | None = None,
     accum_dtype: torch.dtype = torch.float32,
     reduce: Callable | None = None,
+    trace_repeat: Callable | None = None,
 ) -> tuple[Tree, torch.Tensor]:
     """Sum of per-example L2-clipped gradients (paper Algorithm 2, lines 1-3).
 
@@ -82,7 +85,19 @@ def per_example_clipped_grad_sum(
     reference's do.  ``reduce``, where the batch's rows are split over
     ranks, maps (gradient sum, loss sum, real-row count) to their sums over
     the ranks before the mean is taken.
+
+    ``trace_repeat`` is for a shape-only trace (``launch.dryrun``), whose
+    tensors are all on the meta device: ``trace_repeat(n)`` is a context
+    in which a counter counts everything n times, and only the first of
+    the n microbatches runs, within it.  Each runs the same ops on the
+    same shapes (the batch is padded to a multiple of their size), so the
+    counts are the whole loop's.  Any tensor with values is refused.
     """
+    if trace_repeat is not None and not all(
+            x.is_meta for x in tree_leaves(params) + tree_leaves(batch)
+            + [mask] if isinstance(x, torch.Tensor)):
+        raise ValueError("trace_repeat runs one microbatch of n: meta "
+                         "tensors only")
     params = tree_map(torch.Tensor.detach, params)
     batch_size = tree_leaves(batch)[0].shape[0]
     dev = tree_leaves(params)[0].device
@@ -111,12 +126,17 @@ def per_example_clipped_grad_sum(
     acc = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
                                          device=p.device), params)
     loss_acc = torch.zeros((), dtype=accum_dtype, device=dev)
-    for start in range(0, batch_size, m):
-        mb = tree_map(lambda x: x[start:start + m], batch)
-        g, losses = per_micro(mb, mask[start:start + m])
-        acc = tree_map(lambda a, x: a + torch.sum(x.to(accum_dtype), dim=0),
-                       acc, g)
-        loss_acc = loss_acc + torch.sum(losses)
+    starts = range(0, batch_size, m)
+    for start in starts:
+        with (trace_repeat(len(starts)) if trace_repeat
+              else contextlib.nullcontext()):
+            mb = tree_map(lambda x: rows(x, start, start + m), batch)
+            g, losses = per_micro(mb, rows(mask, start, start + m))
+            acc = tree_map(lambda a, x: a + torch.sum(x.to(accum_dtype),
+                                                      dim=0), acc, g)
+            loss_acc = loss_acc + torch.sum(losses)
+        if trace_repeat:
+            break
     n_real = torch.sum(mask)
     if reduce is not None:
         acc, loss_acc, n_real = reduce((acc, loss_acc, n_real))

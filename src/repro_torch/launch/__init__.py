@@ -8,9 +8,10 @@ repro_torch.launch.serve``), ``roofline`` (the H100's constants and
 ``analyze_program``), ``mesh`` (``DeviceMesh`` factories over a
 ``torch.distributed`` group), ``sharding`` (the reference's logical-axis
 rules as specs, and their DTensor placements), ``federated`` (the
-``shard`` backend) and ``dryrun`` (``python -m repro_torch.launch.dryrun``:
-every program placed on the production mesh of a ``fake`` group), with
-``ranks`` to start ranks without ``torchrun``.  Not ported:
-``reanalyze``, which re-reads cached XLA HLO that a torch program does
-not have.
+``shard`` backend), ``dryrun`` (``python -m repro_torch.launch.dryrun``:
+every program placed on the production mesh of a ``fake`` group, each
+record with the op log of what a rank ran beside it) and ``reanalyze``
+(``python -m repro_torch.launch.reanalyze``: the records re-scored from
+their op logs, where the reference re-reads its cached HLO), with
+``ranks`` to start ranks without ``torchrun``.
 """

@@ -23,19 +23,28 @@ bound, where the reference's HLO model counts every buffer.  The
 reference's HLO-only fields (``dot_bytes``, ``dus_bytes``,
 ``toplevel_result_bytes``, ``compile_s``, the HLO cache) have no
 counterpart.  Records go to ``build/dryrun_torch/`` (never
-``benchmarks/``).
+``benchmarks/``), each with its op log beside it
+(``<record>.ops.jsonl.gz``: every distinct local op this rank ran, with
+its argument and output shapes and dtypes and how many times it ran,
+and each collective's kind and bytes), which ``launch.reanalyze``
+re-scores without tracing again, as the reference re-reads the HLO it
+caches beside each record.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--skip-existing]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k --mesh 2,2,2
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gzip
 import json
 import math
 import os
+import sys
 import time
 import traceback
 from collections import Counter
@@ -47,7 +56,12 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch.configs import ARCHITECTURES, INPUT_SHAPES, get_config
 from repro_torch.configs.shapes import ShapeSkip
 from repro_torch.launch import sharding as sh
-from repro_torch.launch.mesh import init_fake_group, make_production_mesh
+from repro_torch.launch.mesh import (
+    MULTI_POD_AXES,
+    init_fake_group,
+    make_mesh,
+    make_production_mesh,
+)
 from repro_torch.launch.roofline import model_flops, roofline_terms
 from repro_torch.launch.steps import build_program
 from repro_torch.models.layers import activation_sharding
@@ -68,7 +82,37 @@ _SKIP = {torch.ops.aten.is_contiguous.default,
 
 _COLLECTIVES = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all",
                 "broadcast")
+# ops that read a tensor's values, answered on meta tensors as if nothing
+# were selected, where DTensor's own code asks (``_answered_read``)
+_READS_VALUES = {
+    torch.ops.aten._local_scalar_dense.default:
+        lambda t: False if t.dtype == torch.bool else 0,
+    torch.ops.aten.nonzero.default:
+        lambda t: torch.empty((0, t.dim()), dtype=torch.long, device="meta"),
+}
 _META_LIB = None
+_DTENSOR_CODE = os.path.join("torch", "distributed", "tensor", "")
+# the frames between an op's caller and a dispatch mode
+_DISPATCH_FRAMES = tuple(os.path.join("torch", *p) for p in (
+    ("_dynamo", ""), ("_compile.py",), ("utils", "_python_dispatch.py")))
+
+
+def _answered_read(func, args) -> bool:
+    """Whether ``func`` reads the values of a meta tensor for DTensor's
+    own code, whose local op it is (torch 2.11 masks a vocab shard with a
+    boolean write, which reads a count; the answer changes no shape of
+    the masked write).  A read anywhere else, also one of a DTensor the
+    model reads, is not answered: it raises, as on any meta tensor, where
+    an invented value would steer a branch."""
+    if func not in _READS_VALUES or not args[0].is_meta:
+        return False
+    frame = sys._getframe(2)
+    while frame is not None and any(
+            p in frame.f_code.co_filename for p in _DISPATCH_FRAMES):
+        frame = frame.f_back
+    where = frame.f_code.co_filename if frame is not None else ""
+    return _DTENSOR_CODE in where and \
+        not where.endswith(os.path.join("tensor", "_dispatch.py"))
 
 
 def _meta_equal() -> None:
@@ -83,6 +127,29 @@ def _meta_equal() -> None:
         _META_LIB.impl("equal", lambda a, b: a.shape == b.shape, "Meta")
 
 
+def _squeeze_dims_rule() -> None:
+    """Give DTensor a rule for ``aten.squeeze.dims`` where it has none
+    (torch 2.11; 2.13 has one): ``vmap``'s backward of a broadcast
+    squeezes a tuple of dims.  The rule is a view's, as DTensor's own
+    for ``squeeze.dim``: the dims of size 1 named go, the rest stay."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+    from torch.distributed.tensor._ops import _view_ops as views
+
+    op = torch.ops.aten.squeeze.dims
+    if op in DTensor._op_dispatcher.sharding_propagator.op_strategy_funcs:
+        return
+
+    def squeeze_dims(x, dims):
+        gone = {d % x.ndim for d in dims}
+        return tuple(views.InputDim(i) for i, n in enumerate(x.shape)
+                     if n != 1 or i not in gone)
+
+    views.dim_maps[squeeze_dims] = squeeze_dims
+    views.register_op_strategy_map(op, squeeze_dims,
+                                   schema_info=RuntimeSchemaInfo(1))
+
+
 def _nbytes(obj) -> int:
     if isinstance(obj, torch.Tensor):
         return obj.numel() * obj.element_size()
@@ -91,17 +158,44 @@ def _nbytes(obj) -> int:
     return 0
 
 
+def _spec(x):
+    """An op argument as the op log keeps it: a tensor's [shape, dtype], a
+    list of such, or None for anything else."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), str(x.dtype).removeprefix("torch."))
+    if isinstance(x, (list, tuple)) and any(isinstance(t, torch.Tensor)
+                                            for t in x):
+        return tuple(_spec(t) for t in x)
+    return None
+
+
 class RankCounts(TorchDispatchMode):
     """This rank's work: DTensor ops are let through (``NotImplemented``)
     so DTensor runs them and their local ops come back here, where FLOPs
     are counted as ``FlopCounterMode`` counts them and the functional
-    collectives by kind and bytes."""
+    collectives by kind and bytes.  ``ops`` is the op log: how many times
+    each distinct (op, positional argument specs, output specs) ran, and a
+    collective's kind and bytes (``write_op_log``)."""
 
     def __init__(self) -> None:
         super().__init__()
         self.flops: Counter = Counter()
         self.coll_bytes: Counter = Counter()
         self.coll_counts: Counter = Counter()
+        self.ops: Counter = Counter()
+        self.answered: Counter = Counter()     # value reads answered
+        self.scale = 1
+
+    @contextlib.contextmanager
+    def repeated(self, n: int):
+        """Count everything within n times (a loop's identical bodies,
+        traced once: ``core.dp.per_example_clipped_grad_sum``'s
+        ``trace_repeat``)."""
+        self.scale *= n
+        try:
+            yield
+        finally:
+            self.scale //= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -117,6 +211,9 @@ class RankCounts(TorchDispatchMode):
             return func(*args, **kwargs)
         if isinstance(func, torch._ops.HigherOrderOperator):
             return func(*args, **kwargs)
+        if _answered_read(func, args):
+            self.answered[str(func)] += 1
+            return _READS_VALUES[func](args[0])
         if func not in flop_registry and \
                 func is not torch.ops.prim.device.default:
             with self:
@@ -126,13 +223,35 @@ class RankCounts(TorchDispatchMode):
         out = func(*args, **kwargs)
         packet = func._overloadpacket
         if packet in flop_registry:
-            self.flops[str(packet)] += flop_registry[packet](
+            self.flops[str(packet)] += self.scale * flop_registry[packet](
                 *args, **kwargs, out_val=out)
         kind = str(packet).split(".")[-1]
+        coll = None
         if "c10d" in str(packet) and kind.startswith(_COLLECTIVES):
-            self.coll_counts[kind] += 1
-            self.coll_bytes[kind] += max(_nbytes(args[0]), _nbytes(out))
+            coll = (kind, max(_nbytes(args[0]), _nbytes(out)))
+            self.coll_counts[kind] += self.scale
+            self.coll_bytes[kind] += self.scale * coll[1]
+        self.ops[(str(func), tuple(_spec(a) for a in args), _spec(out),
+                  coll)] += self.scale
         return out
+
+
+def op_log_path(json_path: str) -> str:
+    """The op log beside a record: ``<record>.ops.jsonl.gz``."""
+    return json_path[:-len(".json")] + ".ops.jsonl.gz"
+
+
+def write_op_log(ops: Counter, path: str) -> None:
+    """One JSON line per distinct op: ``op``, ``args`` (each positional
+    argument's [shape, dtype], a list of them, or null), ``out`` and
+    ``n``, the times it ran; a collective adds ``kind`` and ``bytes``.
+    gzip-compressed (the standard library's)."""
+    with gzip.open(path, "wt") as f:
+        for (op, args, out, coll), n in ops.items():
+            line = {"op": op, "args": args, "out": out, "n": n}
+            if coll is not None:
+                line["kind"], line["bytes"] = coll
+            f.write(json.dumps(line) + "\n")
 
 
 def _place_tree(tree, specs, mesh):
@@ -163,7 +282,8 @@ def mesh_name(mesh) -> str:
     return "x".join(str(s) for s in mesh.shape)
 
 
-def _placed_program(cfg, shape_name: str, mesh, policy, dp_mode):
+def _placed_program(cfg, shape_name: str, mesh, policy, dp_mode,
+                    trace_repeat=None):
     """The program, its placed arguments and its activation rules."""
     shape = INPUT_SHAPES[shape_name]
     b = shape["global_batch"]
@@ -174,7 +294,7 @@ def _placed_program(cfg, shape_name: str, mesh, policy, dp_mode):
     kind = shape["kind"]
     groups = data if kind != "decode" or b % data == 0 else 1
     program = build_program(cfg, shape_name, "meta", dp_mode=dp_mode,
-                            moe_groups=groups)
+                            moe_groups=groups, trace_repeat=trace_repeat)
     if kind == "train":
         params, opt_state, batch = program.args
         pspecs = sh.param_specs(params, mesh, policy)
@@ -220,6 +340,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     from torch.distributed.tensor.experimental import implicit_replication
 
     _meta_equal()
+    _squeeze_dims_rule()
     cfg = get_config(arch)
     if cfg_overrides:
         cfg = cfg.replace(**cfg_overrides)
@@ -230,10 +351,11 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     name = mesh_name(mesh)
     n_chips = mesh.size()
     t0 = time.time()
-    program, args, rules = _placed_program(cfg, shape_name, mesh, policy,
-                                           dp_mode)
-    t_place = time.time() - t0
     counts = RankCounts()
+    # a per-example program's microbatches are traced once, counted n times
+    program, args, rules = _placed_program(cfg, shape_name, mesh, policy,
+                                           dp_mode, counts.repeated)
+    t_place = time.time() - t0
     with implicit_replication(), activation_sharding(rules), counts:
         program.fn(*args)
     t_trace = time.time() - t0 - t_place
@@ -267,8 +389,11 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                                for k, v in counts.coll_bytes.items()},
         "collective_counts_per_rank": dict(counts.coll_counts),
         "argument_bytes_per_rank": arg_rank,
+        # value reads of meta tensors answered for DTensor's masking
+        "value_reads_answered": dict(counts.answered),
         "roofline": terms,
         "tag": tag,
+        "cfg_overrides": cfg_overrides or {},
     }
     out_dir = out_dir or ARTIFACT_DIR
     os.makedirs(out_dir, exist_ok=True)
@@ -276,6 +401,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     path = os.path.join(out_dir, f"{arch}__{shape_name}__{name}{suffix}.json")
     with open(path, "w") as f:
         json.dump(record, f, indent=2, default=str)
+    write_op_log(counts.ops, op_log_path(path))
     print(f"[{arch} x {shape_name} x {name}] OK place={t_place:.1f}s "
           f"trace={t_trace:.1f}s flops={flops:.3e} coll={coll:.3e}B "
           f"bottleneck={terms['bottleneck']}", flush=True)
@@ -287,6 +413,10 @@ def main(argv=None) -> None:
     p.add_argument("--arch", choices=list(ARCHITECTURES), default=None)
     p.add_argument("--shape", choices=list(INPUT_SHAPES), default=None)
     p.add_argument("--multi-pod", action="store_true")
+    p.add_argument("--mesh", default=None,
+                   help="another mesh than the production one: 'D,M' "
+                        "(\"data\", \"model\") or 'P,D,M' (\"pod\", "
+                        "\"data\", \"model\"), e.g. 4,2 or 2,2,2")
     p.add_argument("--all", action="store_true",
                    help="every (arch x shape) on the selected mesh")
     p.add_argument("--skip-existing", action="store_true")
@@ -296,8 +426,16 @@ def main(argv=None) -> None:
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
 
-    init_fake_group(512 if args.multi_pod else 256)
-    mesh = make_production_mesh(multi_pod=args.multi_pod, device_type="cpu")
+    if args.mesh:
+        dims = tuple(int(n) for n in args.mesh.split(","))
+        if len(dims) not in (2, 3) or args.multi_pod:
+            p.error("--mesh takes 2 or 3 extents, without --multi-pod")
+        init_fake_group(math.prod(dims))
+        mesh = make_mesh(dims, MULTI_POD_AXES[-len(dims):], "cpu")
+    else:
+        init_fake_group(512 if args.multi_pod else 256)
+        mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                    device_type="cpu")
     if args.all:
         combos = [(a, s) for a in ARCHITECTURES for s in INPUT_SHAPES]
     else:

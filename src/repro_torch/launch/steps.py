@@ -79,7 +79,8 @@ def _one_group(cfg, groups: int = 1):
 
 def build_train_program(cfg, shape_name: str, device=DEFAULT_DEVICE,
                         dp_mode: str | None = None,
-                        moe_groups: int = 1) -> Program:
+                        moe_groups: int = 1,
+                        trace_repeat=None) -> Program:
     device = _device(device)
     cfg, batch_specs, kind = input_specs(cfg, shape_name)
     if kind != "train":
@@ -113,7 +114,7 @@ def build_train_program(cfg, shape_name: str, device=DEFAULT_DEVICE,
         DeCaPHStepConfig(dp=dp_lib.DPConfig(
             clip_norm=cfg.dp_clip, noise_multiplier=cfg.dp_sigma,
             microbatch_size=micro), mode=mode, global_batch=global_batch),
-        ghost_grad_sum=ghost_grad_sum)
+        ghost_grad_sum=ghost_grad_sum, trace_repeat=trace_repeat)
 
     def train_step(params, opt_state, batch, generator):
         return step(params, opt_state, _to(device, batch), generator)
@@ -166,12 +167,16 @@ def build_decode_program(cfg, shape_name: str, device=DEFAULT_DEVICE,
 
 
 def build_program(cfg, shape_name: str, device=DEFAULT_DEVICE,
-                  dp_mode: str | None = None, moe_groups: int = 1
-                  ) -> Program:
+                  dp_mode: str | None = None, moe_groups: int = 1,
+                  trace_repeat=None) -> Program:
+    """The program of a shape's kind.  ``trace_repeat``, for a shape-only
+    trace on meta tensors, is a counter's ``repeated``: a per-example
+    program then runs one microbatch, counted as many times as there are
+    (``core.dp.per_example_clipped_grad_sum``)."""
     kind = INPUT_SHAPES[shape_name]["kind"]
     if kind == "train":
         return build_train_program(cfg, shape_name, device, dp_mode,
-                                   moe_groups)
+                                   moe_groups, trace_repeat)
     if kind == "prefill":
         return build_prefill_program(cfg, shape_name, device, moe_groups)
     return build_decode_program(cfg, shape_name, device, moe_groups)

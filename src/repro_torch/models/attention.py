@@ -56,11 +56,18 @@ from repro_torch.models.layers import (
     rmsnorm,
     rope_angles,
     rotate,
-    placed_like,
     shard,
     sin_cos,
     split_dim,
     split_last,
+)
+from repro_torch.models.placement import (
+    einsum,
+    from_block,
+    local_block,
+    merge_dims,
+    placements_of,
+    write_rows,
 )
 
 NEG_INF = -1e30
@@ -97,18 +104,243 @@ def _sdpa(q, k, v, mask):
     """q: [B,S,H,D]; k,v: [B,L,KV,D]; mask: [B,1,S,L] additive or None.
 
     The model's own plain attention, in float32 (``decode_kernel=False``).
+    DTensors whose keys are whole along the sequence take
+    ``_ShardedAttention``: the same products on each rank's own rows and
+    heads.
     """
-    b, s, h, d = q.shape
+    if placements_of(q) is not None and not _seq_sharded(k):
+        return _ShardedAttention.apply(q, k, v, mask)[0]
+    return _attend(q, k, v, mask)[0]
+
+
+# ---------------------------------------------------------------------------
+# Attention on DTensors, rank by rank
+# ---------------------------------------------------------------------------
+#
+# DTensor propagates an einsum through the bmm it decomposes into, and the
+# bmm's batch dim is (batch x kv heads) flattened: with the batch split
+# over ("pod", "data") and the heads over "model" that flattened dim is a
+# strided shard, and torch's redistribute planner searches a graph of
+# placements for every candidate strategy (minutes for one op on a 3-D
+# mesh).  Attention needs no communication once each rank holds its rows'
+# keys and its heads' keys, so ``_ShardedAttention`` places q, k, v that
+# way (the reference's hints name it: batch over its axes, heads over
+# "model") and runs ``_attend``/``_attend_grad`` on the local shards.  It
+# is an ``autograd.Function`` with ``vmap`` rules, so the faithful
+# per-example path (``torch.func.vmap`` of ``grad``) runs it as well.
+# ``placement.einsum`` (the MLA's route) cannot place this: q's heads
+# reach the products through the view h -> (kv heads, group), whose split
+# DTensor keeps only on the kv heads, so where the kv heads do not divide
+# the "model" extent (32/4, 96/8, 32/8 heads over 16) the heads are made
+# whole and every "model" rank would run all of them; here each rank
+# picks its heads' keys out of whole ones instead.
+
+
+def _seq_sharded(k) -> bool:
+    """Whether a DTensor's dim 1 (the keys' sequence) is split."""
+    return any(p.is_shard(1) for p in placements_of(k) or ())
+
+
+def _attend(q, k, v, mask):
+    """``_sdpa``'s products, with its float32 probabilities [B, KV, G, S,
+    L]: on plain tensors (a rank's blocks), or on DTensors whose keys are
+    split along the sequence, through DTensor's own propagation."""
+    h, d = q.shape[2], q.shape[3]
     kvh = k.shape[2]
-    group = h // kvh
-    qg = split_dim(q, 2, kvh, group)
+    qg = split_dim(q, 2, kvh, h // kvh)
     scores = torch.einsum("bskgd,blkd->bkgsl", qg.float(),
                           k.float()) / math.sqrt(d)
     if mask is not None:
         scores = scores + mask[:, :, None]  # mask: [B, KV->1, S, L]
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgsl,blkd->bskgd", probs, v.float())
-    return out.reshape(b, s, h, d).to(q.dtype)
+    return merge_dims(out, 2).to(q.dtype), probs
+
+
+def _attend_grad(q, k, v, probs, dout):
+    """The gradients of ``_attend``'s output for q, k and v (plain
+    tensors): the products autograd takes through its einsums."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    do = dout.float().reshape(b, s, kvh, g, d)
+    dv = torch.einsum("bkgsl,bskgd->blkd", probs, do)
+    dp = torch.einsum("bskgd,blkd->bkgsl", do, v.float())
+    ds = probs * (dp - torch.sum(dp * probs, dim=-1, keepdim=True))
+    ds = ds / math.sqrt(d)
+    dq = torch.einsum("bkgsl,blkd->bskgd", ds, k.float())
+    dk = torch.einsum("bkgsl,bskgd->blkd", ds,
+                      q.reshape(b, s, kvh, g, d).float())
+    return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Layout:
+    """Where each rank's attention lives.  Each mesh dim keeps the split
+    the keys have (the larger operand: a decode's cache), else q's, if it
+    is of the batch (dim 0) or of the heads (dim 2, where the heads
+    divide): q and the output are split there, and the keys too, by their
+    KV heads where those divide as well (else each rank picks its heads'
+    keys out of whole ones).  Everything else is made whole."""
+
+    def __init__(self, q, k):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset,
+        )
+
+        mesh = q.device_mesh
+        h, kvh = q.shape[2], k.shape[2]
+        self.mesh = mesh
+        order = (k, q) if k.numel() >= q.numel() else (q, k)
+        self.pq, heads, head_dims = [], 1, []
+        for md in range(mesh.ndim):
+            dims = [p.dim for p in (x.placements[md] for x in order
+                                    if hasattr(x, "placements"))
+                    if type(p) is Shard and p.dim in (0, 2)]
+            if dims and dims[0] == 2 and h % (heads * mesh.size(md)):
+                dims = [d for d in dims if d == 0]
+            if not dims:
+                self.pq.append(Replicate())
+            elif dims[0] == 0:
+                self.pq.append(Shard(0))
+            else:
+                heads *= mesh.size(md)
+                head_dims.append(md)
+                self.pq.append(Shard(2))
+        self.kv_split = kvh % heads == 0
+        self.pk = [Replicate() if md in head_dims and not self.kv_split
+                   else p for md, p in enumerate(self.pq)]
+        self.head_dims = head_dims
+        # the probabilities [B, H, S, L]: q's splits, heads at dim 1
+        self.pp = [Shard(1) if p.is_shard(2) else p for p in self.pq]
+        shape, off = compute_local_shape_and_global_offset(
+            tuple(q.shape), mesh, self.pq)
+        self.rows = (off[0], shape[0])
+        # the KV head of each local q head, where the keys stay whole
+        self.kv_of = None if self.kv_split else \
+            (off[2] + torch.arange(shape[2])) // (h // kvh)
+
+    def local_mask(self, mask):
+        if mask is None:
+            return None
+        from torch.distributed.tensor import Replicate
+
+        mask = local_block(mask, self.mesh, [Replicate()] * self.mesh.ndim)
+        if mask.shape[0] > 1:
+            mask = mask[self.rows[0]:self.rows[0] + self.rows[1]]
+        return mask
+
+    def local_qkv(self, q, k, v):
+        q = local_block(q, self.mesh, self.pq)
+        k, v = (local_block(x, self.mesh, self.pk) for x in (k, v))
+        if self.kv_of is not None:
+            idx = self.kv_of.to(k.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        return q, k, v
+
+
+class _ShardedAttention(torch.autograd.Function):
+    """``_sdpa`` of DTensors on each rank's own shards (the comment
+    above): -> (the output in q's layout, the probabilities [B,H,S,L],
+    kept for the backward)."""
+
+    @staticmethod
+    def forward(q, k, v, mask):
+        lay = _Layout(q, k)
+        ql, kl, vl = lay.local_qkv(q, k, v)
+        out, probs = _attend(ql, kl, vl, lay.local_mask(mask))
+        b, kvh, g, s, l = probs.shape
+        return (from_block(out, lay.mesh, lay.pq, q.shape),
+                from_block(probs.reshape(b, kvh * g, s, l), lay.mesh,
+                           lay.pp, (q.shape[0], q.shape[2], s, l)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, _ = inputs
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(q, k, v, output[1])
+
+    @staticmethod
+    def backward(ctx, dout, _dprobs):
+        q, k, v, probs = ctx.saved_tensors
+        return (*_ShardedAttentionGrad.apply(q, k, v, probs, dout), None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, mask):
+        n = info.batch_size
+        qb, kb, vb = (_batch_front(x, d, n) for x, d in
+                      zip((q, k, v), in_dims[:3]))
+        b = qb.shape[1]
+        if mask is not None and (in_dims[3] is not None
+                                 or mask.shape[0] > 1):
+            mask = _batch_front(mask, in_dims[3], n)
+            mask = _merge(mask.expand(n, b, *mask.shape[2:]))
+        out, probs = _ShardedAttention.apply(_merge(qb), _merge(kb),
+                                             _merge(vb), mask)
+        return ((out.reshape(n, b, *out.shape[1:]),
+                 probs.reshape(n, b, *probs.shape[1:])), (0, 0))
+
+
+class _ShardedAttentionGrad(torch.autograd.Function):
+    """``_attend_grad`` of DTensors on each rank's own shards: dq in q's
+    layout; dk and dv in the keys', pending a sum over the mesh dims that
+    split q's heads where each rank picked its heads' keys."""
+
+    @staticmethod
+    def forward(q, k, v, probs, dout):
+        from torch.distributed.tensor import Partial
+
+        lay = _Layout(q, k)
+        ql, kl, vl = lay.local_qkv(q, k, v)
+        pl = local_block(probs, lay.mesh, lay.pp)
+        b, hl, s, l = pl.shape
+        kvh = kl.shape[2]
+        dq, dk, dv = _attend_grad(ql, kl, vl,
+                                  pl.reshape(b, kvh, hl // kvh, s, l),
+                                  local_block(dout, lay.mesh, lay.pq))
+        pk = list(lay.pk)
+        if lay.kv_of is not None:
+            # each local head's key gradient back onto its KV head
+            idx = lay.kv_of.to(dk.device)
+            shape = (b, l, k.shape[2], k.shape[3])
+            dk = dk.new_zeros(shape).index_add_(2, idx, dk)
+            dv = dv.new_zeros(shape).index_add_(2, idx, dv)
+            pk = [Partial() if md in lay.head_dims else p
+                  for md, p in enumerate(pk)]
+        return (from_block(dq, lay.mesh, lay.pq, q.shape),
+                from_block(dk, lay.mesh, pk, k.shape),
+                from_block(dv, lay.mesh, pk, v.shape))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("attention's gradient is not differentiated "
+                           "again")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, probs, dout):
+        n = info.batch_size
+        xs = [_batch_front(x, d, n) for x, d in
+              zip((q, k, v, probs, dout), in_dims)]
+        b = xs[0].shape[1]
+        grads = _ShardedAttentionGrad.apply(*(_merge(x) for x in xs))
+        return tuple(g.reshape(n, b, *g.shape[1:]) for g in grads), \
+            (0, 0, 0)
+
+
+def _batch_front(x, dim, n):
+    """``x`` with ``vmap``'s batch dim first (broadcast when it has
+    none)."""
+    return x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+
+
+def _merge(x):
+    """[N, B, ...] -> [N * B, ...]: ``vmap``'s examples as more rows."""
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
 
 
 def _blocked_step(qg, k_blk, v_blk, m_run, l_run, acc, *, start: int,
@@ -212,7 +444,7 @@ def gqa_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     else:
         mask = _causal_mask(s, s, 0, window, x.device) if causal else None
         out = _sdpa(q, k, v, mask)
-    return matmul(out.reshape(b, s, h * hd), p["wo"])
+    return matmul(merge_dims(out), p["wo"])
 
 
 def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, cfg,
@@ -258,11 +490,8 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
     # a no-op unless float32 parameters promoted the products above a
     # bfloat16 compute dtype, a pair the reference refuses to decode
     q = q.to(k_cache.dtype)
-    rows = (torch.arange(b, device=x.device), index.long())
-    k_cache.index_put_(rows, placed_like(k_new[:, 0].to(k_cache.dtype),
-                                         k_cache[:, 0]))
-    v_cache.index_put_(rows, placed_like(v_new[:, 0].to(v_cache.dtype),
-                                         v_cache[:, 0]))
+    write_rows(k_cache, index, k_new[:, 0].to(k_cache.dtype))
+    write_rows(v_cache, index, v_new[:, 0].to(v_cache.dtype))
     if cfg.use_decode_kernel:
         out = decode_attention(q, k_cache, v_cache, index, window=window)
     else:
@@ -273,7 +502,7 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
             ok &= kj > pos - window
         mask = torch.where(ok, 0.0, NEG_INF)[:, None, None, :]  # [B,1,1,L]
         out = _sdpa(q, k_cache, v_cache, mask)
-    y = matmul(out.reshape(b, 1, h * hd), p["wo"])
+    y = matmul(merge_dims(out), p["wo"])
     return y, cache
 
 
@@ -336,13 +565,13 @@ def mla_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     c, kr = _mla_latents(p, x, positions, cfg)
     k_nope = split_last(matmul(c, p["w_uk"]), h, dn)
     v = split_last(matmul(c, p["w_uv"]), h, dv)
-    scores = (torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
-              + torch.einsum("bshd,btd->bhst", q_rope.float(), kr.float())
+    scores = (einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
+              + einsum("bshd,btd->bhst", q_rope.float(), kr.float())
               ) * (1.0 / math.sqrt(dn + dr))
     scores = scores + _causal_mask(s, s, 0, window, x.device)[:, 0]
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhst,bthd->bshd", probs, v.float()).to(x.dtype)
-    return matmul(out.reshape(b, s, h * dv), p["wo"])
+    out = einsum("bhst,bthd->bshd", probs, v.float()).to(x.dtype)
+    return matmul(merge_dims(out), p["wo"])
 
 
 def mla_init_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
@@ -377,15 +606,14 @@ def mla_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
     pos = index[:, None]                                       # [B,1]
     q_nope, q_rope = _mla_q(p, x, pos, cfg)                    # [B,1,H,dn/dr]
     c_new, kr_new = _mla_latents(p, x, pos, cfg)               # [B,1,dc/dr]
-    rows = (torch.arange(b, device=x.device), index.long())
-    c.index_put_(rows, placed_like(c_new[:, 0].to(c.dtype), c[:, 0]))
-    kr.index_put_(rows, placed_like(kr_new[:, 0].to(kr.dtype), kr[:, 0]))
+    write_rows(c, index, c_new[:, 0].to(c.dtype))
+    write_rows(kr, index, kr_new[:, 0].to(kr.dtype))
     w_uk = p["w_uk"].reshape(dc, h, dn)
     w_uv = p["w_uv"].reshape(dc, h, dv)
     dt = torch.promote_types(q_nope.dtype, w_uk.dtype)
-    q_abs = torch.einsum("bshn,dhn->bshd", q_nope.to(dt), w_uk.to(dt))
-    scores = (torch.einsum("bshd,bld->bhsl", q_abs.float(), c.float())
-              + torch.einsum("bshr,blr->bhsl", q_rope.float(), kr.float())
+    q_abs = einsum("bshn,dhn->bshd", q_nope.to(dt), w_uk.to(dt))
+    scores = (einsum("bshd,bld->bhsl", q_abs.float(), c.float())
+              + einsum("bshr,blr->bhsl", q_rope.float(), kr.float())
               ) * (1.0 / math.sqrt(dn + dr))
     kj = torch.arange(c.shape[1], device=x.device)[None, :]
     at = index.long()[:, None]
@@ -394,10 +622,10 @@ def mla_decode(p: dict, x: torch.Tensor, cache: dict, index: torch.Tensor,
         ok &= kj > at - window
     scores = torch.where(ok[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("bhsl,bld->bshd", probs, c.float())     # [B,1,H,dc]
+    ctx = einsum("bhsl,bld->bshd", probs, c.float())     # [B,1,H,dc]
     dt = torch.promote_types(x.dtype, w_uv.dtype)
-    out = torch.einsum("bshd,dhv->bshv", ctx.to(x.dtype).to(dt), w_uv.to(dt))
-    return matmul(out.reshape(b, 1, h * dv), p["wo"]), cache
+    out = einsum("bshd,dhv->bshv", ctx.to(x.dtype).to(dt), w_uv.to(dt))
+    return matmul(merge_dims(out), p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -436,4 +664,4 @@ def cross_decode(p: dict, x: torch.Tensor, ckv: dict, cfg) -> torch.Tensor:
     h, hd = cfg.n_heads, cfg.head_dim
     q = _split_heads(matmul(x, p["cross_wq"]), h, hd)
     out = _sdpa(q, ckv["k"], ckv["v"], None)
-    return matmul(out.reshape(b, s, h * hd), p["cross_wo"])
+    return matmul(merge_dims(out), p["cross_wo"])

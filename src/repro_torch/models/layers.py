@@ -9,8 +9,11 @@ reference's axis-encoded keys (``"wq|embed,qheads"``) and
 
 ``shard(x, *axes)`` is the reference's activation hint.  Without rules
 (``activation_sharding``) or on a plain tensor it returns ``x`` itself, so
-nothing on a one-card path changes; on a DTensor under rules it
-redistributes ``x`` to the placements the reference's rule gives.
+nothing on a one-card path changes; on a DTensor under rules (also one
+under ``torch.func``'s transforms) it redistributes ``x`` to the
+placements the reference's rule gives.  ``split_dim`` is a view that
+first makes whole what DTensor could not split evenly; the placements
+DTensor cannot find by itself are ``models.placement``'s.
 """
 
 from __future__ import annotations
@@ -20,6 +23,14 @@ import threading
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.placement import (
+    _mesh_of,
+    einsum,
+    even_splits,
+    placements_of,
+    redistribute,
+)
 
 
 def pname(name: str, *axes: str) -> str:
@@ -87,47 +98,34 @@ def activation_spec(shape, axes, rules: dict) -> tuple:
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
     """Hint activation ``x``'s logical axes (identity without rules or on
     a plain tensor): a DTensor is redistributed to the placements of
-    ``activation_spec``."""
+    ``activation_spec``, under ``torch.func`` transforms too
+    (``redistribute``)."""
     rules = getattr(_SHARDING, "rules", None)
-    if rules is None or not hasattr(x, "placements"):
+    if rules is None or placements_of(x) is None:
         return x
     from repro_torch.launch.sharding import to_placements  # rules only
 
     mesh = rules["__mesh__"]
-    placements = to_placements(activation_spec(x.shape, axes, rules), mesh)
-    if tuple(x.placements) == tuple(placements):
-        return x
-    return x.redistribute(mesh, placements)
-
-
-def placed_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    """``x`` in ``ref``'s placements where both are DTensors (a value about
-    to be written into ``ref`` in place, which DTensor cannot reshard);
-    ``x`` itself otherwise."""
-    if hasattr(x, "placements") and hasattr(ref, "placements") and \
-            tuple(x.placements) != tuple(ref.placements):
-        return x.redistribute(ref.device_mesh, ref.placements)
-    return x
+    return redistribute(x, to_placements(
+        activation_spec(x.shape, axes, rules), mesh))
 
 
 def split_dim(x: torch.Tensor, dim: int, n: int, rest: int) -> torch.Tensor:
     """``x`` with dim ``dim`` (of size n * rest) split into (n, rest): a
     view of a plain tensor.
 
-    A DTensor whose ``dim`` a mesh dim splits into a number of blocks
-    that does not divide ``n`` is first made whole over that mesh dim:
-    the split heads could not be sharded evenly (smollm's 15 heads over 2
-    model ranks), where GSPMD reshards without being asked and DTensor
-    refuses the view."""
+    A DTensor whose ``dim`` its mesh dims split into a number of blocks
+    that does not divide ``n`` is first made whole over the mesh dims
+    past the last one whose running product of extents divides ``n``:
+    split heads that could not be sharded evenly (smollm's 15 heads over
+    2 model ranks), or 16 MoE groups of tokens split 32 ways over
+    ("pod", "data"), where GSPMD reshards without being asked and
+    DTensor refuses the view.  Under ``torch.func`` transforms as well
+    (``placements_of``, ``redistribute``)."""
     dim %= x.ndim
-    if hasattr(x, "placements"):
-        from torch.distributed.tensor import Replicate
-
-        mesh = x.device_mesh
-        keep = [Replicate() if p.is_shard(dim) and n % mesh.size(md) else p
-                for md, p in enumerate(x.placements)]
-        if keep != list(x.placements):
-            x = x.redistribute(mesh, keep)
+    placements = placements_of(x)
+    if placements is not None:
+        x = redistribute(x, even_splits(placements, _mesh_of(x), dim, n))
     return x.reshape(x.shape[:dim] + (n, rest) + x.shape[dim + 1:])
 
 
@@ -143,9 +141,20 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     the first round the parameters are float32 while activations may be
     bfloat16; the reference promotes such products, and torch's ``@``
     refuses mixed dtypes.
+
+    A DTensor under ``torch.func`` times a weight multiplies on each
+    rank's blocks (``placement.einsum``): ``@`` flattens the leading dims,
+    and where the sequence is split under the unsplit examples of a
+    ``vmap`` (the per-example rules) that flat dim is a strided split,
+    which torch's redistribute planner searches for minutes.
     """
     dt = torch.promote_types(a.dtype, b.dtype)
-    return a.to(dt) @ b.to(dt)
+    a, b = a.to(dt), b.to(dt)
+    if b.ndim == 2 and a.ndim > 2 and not hasattr(a, "placements") and \
+            placements_of(a) is not None:
+        rows = "abcdefgh"[:a.ndim]
+        return einsum(f"{rows},{rows[-1]}z->{rows[:-1]}z", a, b)
+    return a @ b
 
 
 # ---------------------------------------------------------------------------

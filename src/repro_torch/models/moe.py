@@ -38,7 +38,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, matmul, shard
+from repro_torch.models.layers import dense_init, matmul, shard, split_dim
 
 
 def moe_init(cfg, dtype: torch.dtype, generator: torch.Generator | None,
@@ -182,10 +182,14 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, *, groups: int | None = None,
         ce = torch.mean(torch.sum(chosen, dim=1), dim=0) / k
         aux = e * torch.sum(me * ce)
 
-    buf, meta = _dispatch_group(xf.reshape(groups, tg, d),
-                                top_ids.reshape(groups, tg, k), e, capacity)
+    # the grouped views: where the tokens are split over more ranks than
+    # the groups take (16 groups over ("pod", "data"), 32 ways), the
+    # extra mesh dims are made whole first (``split_dim``)
+    buf, meta = _dispatch_group(split_dim(xf, 0, groups, tg),
+                                split_dim(top_ids, 0, groups, tg), e,
+                                capacity)
     y = _combine_group(_experts(buf, p), meta,
-                       top_probs.reshape(groups, tg, k), tg, k)
+                       split_dim(top_probs, 0, groups, tg), tg, k)
     y = y.reshape(b, s, d)
     if cfg.n_shared_experts:
         gate_s = F.silu(matmul(x, p["w_shared_gate"]))

@@ -36,8 +36,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (dense_init, init_device, matmul, shard,
-                                       split_last)
+from repro_torch.models.layers import (dense_init, init_device, matmul,
+                                       shard, split_last)
+from repro_torch.models.placement import einsum, merge_dims, on_local_shards
 
 
 def _draw(t: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
@@ -48,7 +49,7 @@ def _draw(t: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
 def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` in the promoted dtype of the two, as ``jnp.einsum``."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(dt), b.to(dt))
+    return einsum(eq, a.to(dt), b.to(dt))
 
 
 def _diag_scan(a: torch.Tensor, b: torch.Tensor
@@ -143,7 +144,7 @@ def _ssm_scan(u, dt, a, b, c, chunk: int = 256) -> torch.Tensor:
         dbu = (dt_i * u_i)[..., None] * b_i[:, :, None, :]      # [B,L,DI,DS]
         a_cum, h_rel = _diag_scan(da, dbu)
         hs = a_cum * h[:, None] + h_rel
-        ys.append(torch.einsum("bldn,bln->bld", hs, c_i))
+        ys.append(einsum("bldn,bln->bld", hs, c_i))
         h = hs[:, -1]
     return torch.cat(ys, dim=1)[:, :s]
 
@@ -160,7 +161,11 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     b, c = bcdt[..., :ds], bcdt[..., ds:2 * ds]
     dt = F.softplus(matmul(bcdt[..., 2 * ds:], p["w_dt"]) + p["dt_bias"])
     a = -torch.exp(p["a_log"])
-    y = _ssm_scan(xi.float(), dt.float(), a, b.float(), c.float())
+    rows, inner = {"batch": 0, "heads": 2}, {"heads": 0}
+    y, = on_local_shards(
+        lambda *xs: (_ssm_scan(*xs),),
+        (xi.float(), dt.float(), a, b.float(), c.float()),
+        (rows, rows, inner, {"batch": 0}, {"batch": 0}), (rows,))
     y = y + xi.float() * p["d_skip"]
     y = y.to(x.dtype) * F.silu(z)
     return matmul(y, p["w_out"])
@@ -194,7 +199,7 @@ def mamba_decode(p: dict, x: torch.Tensor, cache: dict, cfg
     da = torch.exp(dt[:, 0, :, None].float() * a)                # [B,DI,DS]
     dbu = (dt * xi_c)[:, 0, :, None].float() * b[:, 0, None, :].float()
     h = da * cache["ssm"] + dbu
-    y = torch.einsum("bdn,bn->bd", h, c[:, 0].float())[:, None]
+    y = einsum("bdn,bn->bd", h, c[:, 0].float())[:, None]
     y = y + xi_c.float() * p["d_skip"]
     y = y.to(x.dtype) * F.silu(z)
     cache["conv"].copy_(hist[:, 1:])
@@ -256,13 +261,13 @@ def _rwkv_wkv_scan_quadratic(r, k, v, w, u, chunk: int = 32):
         cae = ca - lw                                 # exclusive
         r_dec = r_i * torch.exp(cae)
         k_dec = k_i * torch.exp(-ca)
-        y_inter = torch.einsum("blnk,bnkv->blnv", r_dec, s0)
-        scores = torch.einsum("blnk,bmnk->bnlm", r_dec, k_dec) * mask
-        y_intra = torch.einsum("bnlm,bmnv->blnv", scores, v_i)
+        y_inter = einsum("blnk,bnkv->blnv", r_dec, s0)
+        scores = einsum("blnk,bmnk->bnlm", r_dec, k_dec) * mask
+        y_intra = einsum("bnlm,bmnv->blnv", scores, v_i)
         bonus = torch.sum(r_i * u * k_i, dim=-1)      # [B,L,NH]
         ys.append(y_inter + y_intra + bonus[..., None] * v_i)
         k_tail = k_i * torch.exp(ca[:, -1:] - ca)     # k * prod_{>tau} w
-        s0 = torch.exp(ca[:, -1])[..., None] * s0 + torch.einsum(
+        s0 = torch.exp(ca[:, -1])[..., None] * s0 + einsum(
             "blnk,blnv->bnkv", k_tail, v_i)
     return torch.cat(ys, dim=1)[:, :s], s0
 
@@ -286,12 +291,12 @@ def _rwkv_wkv_scan(r, k, v, w, u, chunk: int = 32):
     ys = []
     for r_i, k_i, v_i, w_i in zip(*(t.split(chunk, dim=1)
                                     for t in (r, k, v, w))):
-        kv = torch.einsum("blnk,blnv->blnkv", k_i, v_i)  # [B,L,NH,HS,HS]
+        kv = einsum("blnk,blnv->blnkv", k_i, v_i)  # [B,L,NH,HS,HS]
         # the decay of row k of a state is the same for every column v
         a_cum, s_rel = _diag_scan(w_i[..., None], kv)
         s_all = a_cum * s0[:, None] + s_rel
         s_prev = torch.cat([s0[:, None], s_all[:, :-1]], dim=1)
-        ys.append(torch.einsum("blnk,blnkv->blnv", r_i, s_prev + ukv * kv))
+        ys.append(einsum("blnk,blnkv->blnv", r_i, s_prev + ukv * kv))
         s0 = s_all[:, -1]
     return torch.cat(ys, dim=1)[:, :s], s0
 
@@ -322,9 +327,13 @@ def rwkv6_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     r, k, v, g, w = _rwkv_proj(p, x, x_prev, cfg)
     scan = (_rwkv_wkv_scan_quadratic if cfg.rwkv_chunk_impl == "quadratic"
             else _rwkv_wkv_scan)
-    y, _ = scan(r.float(), k.float(), v.float(), w, p["bonus_u"],
-                chunk=cfg.rwkv_chunk)
-    y = y.reshape(x.shape).to(x.dtype) * g.to(x.dtype)
+    rows = {"batch": 0, "heads": 2}
+    y, _ = on_local_shards(
+        lambda *xs: scan(*xs, chunk=cfg.rwkv_chunk),
+        (r.float(), k.float(), v.float(), w, p["bonus_u"]),
+        (rows, rows, rows, rows, {"heads": 0}),
+        (rows, {"batch": 0, "heads": 1}))
+    y = merge_dims(y).to(x.dtype) * g.to(x.dtype)
     return matmul(y, p["w_o"]).to(x.dtype)
 
 
@@ -344,10 +353,10 @@ def rwkv6_decode(p: dict, x: torch.Tensor, cache: dict, cfg
     and ``wkv`` [B,NH,HS,HS], both updated in place."""
     r, k, v, g, w = _rwkv_proj(p, x, cache["x_prev"], cfg)
     r1, k1, v1, w1 = (t[:, 0].float() for t in (r, k, v, w))
-    kv = torch.einsum("bnk,bnv->bnkv", k1, v1)
+    kv = einsum("bnk,bnv->bnkv", k1, v1)
     state = cache["wkv"]
-    y = torch.einsum("bnk,bnkv->bnv", r1,
-                     state + p["bonus_u"][None, :, :, None] * kv)
+    y = einsum("bnk,bnkv->bnv", r1,
+               state + p["bonus_u"][None, :, :, None] * kv)
     s_new = w1[..., None] * state + kv
     y = y.reshape(x.shape).to(x.dtype) * g.to(x.dtype)
     out = matmul(y, p["w_o"]).to(x.dtype)

@@ -98,6 +98,7 @@ from repro_torch.models.layers import (
     trunc_normal,
 )
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.placement import placements_of, summed, take_rows
 from repro_torch.models.ssm import (
     mamba_apply,
     mamba_decode,
@@ -299,7 +300,8 @@ def prefix_vision(cfg, x: torch.Tensor, batch: dict) -> torch.Tensor:
     """The VLM stub: ``batch["vision_embeds"]`` [B,S_v,D] before the text
     embeddings x [B,S,D]; x itself for other archs or text-only batches."""
     if cfg.arch_type == "vlm" and "vision_embeds" in batch:
-        return torch.cat([batch["vision_embeds"].to(cfg.cdtype), x], dim=1)
+        return torch.cat([batch["vision_embeds"].to(cfg.cdtype), summed(x)],
+                         dim=1)
     return x
 
 
@@ -384,7 +386,8 @@ def _hidden(cfg, params: dict, batch: dict) -> tuple[torch.Tensor,
     enc_out = (_encode(cfg, params, batch["frames"])
                if cfg.is_encoder_decoder else None)
     tokens = batch["tokens"].long()
-    x = prefix_vision(cfg, params["embed"][tokens].to(cfg.cdtype), batch)
+    x = take_rows(params["embed"], tokens).to(cfg.cdtype)
+    x = prefix_vision(cfg, x, batch)
     x = shard(x, "batch", "seq", None)
     b, s, _ = x.shape
     positions, mrope_positions = positions_of(cfg, batch, b, s, x.device)
@@ -422,7 +425,15 @@ def _masked_nll(logits: torch.Tensor, labels: torch.Tensor
     # subtracted before the gathered axis is dropped: a vocab-sharded
     # DTensor's gather is a pending masked sum that DTensor can only
     # reduce in the gathered shape (the same numbers on a plain tensor)
-    gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])
+    idx = labels.clamp(min=0).long()[..., None]
+    if placements_of(lf) is not None and not hasattr(lf, "placements"):
+        # a DTensor under torch.func: torch 2.11's masked gather of a
+        # vocab shard fails under vmap (its mask buffer); the label's
+        # logit summed with zeros is the same number
+        hot = idx == torch.arange(lf.shape[-1], device=lf.device)
+        gold = torch.sum(torch.where(hot, lf, 0.0), dim=-1, keepdim=True)
+    else:
+        gold = torch.gather(lf, -1, idx)
     return (logz[..., None] - gold)[..., 0] * mask, mask
 
 
@@ -462,7 +473,7 @@ def _mtp_loss(cfg, params: dict, batch: dict, hidden: torch.Tensor
     tokens = batch["tokens"].long()
     b, s = tokens.shape
     nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
-    e_next = emb[nxt].to(cfg.cdtype)
+    e_next = take_rows(emb, nxt).to(cfg.cdtype)
     mtp = params["mtp"]
     h = matmul(torch.cat([_norm(cfg, mtp, "norm_h", hidden),
                           _norm(cfg, mtp, "norm_e", e_next)], dim=-1),
@@ -567,7 +578,7 @@ def _layer_decode(cfg, spec, p: dict, x: torch.Tensor, c: dict,
 def _decode(cfg, params: dict, cache: dict, tokens: torch.Tensor,
             positions: torch.Tensor, moe_groups: int
             ) -> tuple[torch.Tensor, dict]:
-    x = params["embed"][tokens].to(cfg.cdtype)
+    x = take_rows(params["embed"], tokens).to(cfg.cdtype)
     for (spec, p), c in zip(layers_of(cfg, params), layer_caches(cfg, cache)):
         x = _layer_decode(cfg, spec, p, x, c, positions, moe_groups)
     x = _norm(cfg, params, "final_norm", x)
