@@ -358,8 +358,15 @@ script exits non-zero, printing no result:
      process a cell started with the phase: SmolLM-360M ``train_4k``
      (per-example DP) on (4, 2), OLMo-1B ``train_4k`` on (2, 2, 2),
      SmolLM-360M ``decode_32k`` on (4, 2) and SmolLM-360M ``prefill_32k``
-     on the (16, 16) mesh: each one's FLOPs, collective bytes, bottleneck
-     and trace seconds; the phase fails if one exits non-zero.
+     on the (16, 16) mesh; and at a cut depth (``run_one``'s
+     ``cfg_overrides``, one ``chip_smoke.py --dry-cell`` process a cell)
+     one cell of each fault torch 2.11 raised on (RWKV6-3B's token shift,
+     Jamba's Mamba layer, a MoE output pending a sum at Qwen3-30B-A3B's
+     decode on (2, 16, 16)) and SmolLM-360M ``train_4k`` on (2, 16, 16)
+     under the per-example rules beside its ``--dp-mode none`` twin:
+     each one's FLOPs, collective bytes, bottleneck and trace seconds;
+     the phase fails if one exits non-zero or the per-example FLOPs
+     exceed 1.25 x the "pod" extent x the twin's.
 
 Artifacts and caches of phases 18–19, 25 and 26 go into temp dirs under
 ``build/``.
@@ -5031,6 +5038,27 @@ SHARD_DRY = (("smollm-360m", "train_4k", "4,2"),
              ("olmo-1b", "train_4k", "2,2,2"),
              ("smollm-360m", "decode_32k", "4,2"),
              ("smollm-360m", "prefill_32k", None))
+# beside them, cells at a cut depth (``run_one``'s ``cfg_overrides``: the
+# whole arch takes minutes), one process each: one of each fault torch
+# 2.11's DTensor raised on (a token shift, Mamba's conv and projections,
+# a MoE output pending a sum beside a split stream), and a per-example
+# program under the per-example rules (16 examples over 32 ("pod",
+# "data") ranks) beside its no-DP twin, whose FLOPs it must not exceed
+# by more than SHARD_DRY_BAR x the "pod" extent:
+# (label, arch, shape, mesh, dp_mode, stack)
+SHARD_DRY_CUT = (
+    ("token shift", "rwkv6-3b", "prefill_32k", "16,16", None,
+     [[1, [["rwkv6", "dense"]]]]),
+    ("mamba", "jamba-v0.1-52b", "prefill_32k", "16,16", None,
+     [[1, [["mamba", "dense"]]]]),
+    ("moe pending sum", "qwen3-moe-30b-a3b", "decode_32k", "2,16,16", None,
+     [[1, [["attn", "moe"]]]]),
+    ("per-example rules", "smollm-360m", "train_4k", "2,16,16",
+     "per_example", [[2, [["attn", "dense"]]]]),
+    ("per-example rules", "smollm-360m", "train_4k", "2,16,16", "none",
+     [[2, [["attn", "dense"]]]]),
+)
+SHARD_DRY_BAR = 1.25
 SHARD_TIMEOUT_S = 400
 
 
@@ -5182,11 +5210,40 @@ def _say_ranks(cell: str, ranks: list, smi: str) -> None:
             f"host-staged, not NVLink): {comm} on {smi}")
 
 
+def dry_cell(spec: str, out: str) -> int:
+    """One cell of ``SHARD_DRY_CUT`` in this process (``--dry-cell``): a
+    ``fake`` group of the mesh's size and ``run_one`` at the cut stack."""
+    from repro_torch.configs.base import LayerSpec
+    from repro_torch.launch.dryrun import run_one
+    from repro_torch.launch.mesh import init_fake_group, make_mesh
+
+    _, arch, shape, mesh, mode, stack = json.loads(spec)
+    dims = tuple(int(n) for n in mesh.split(","))
+    init_fake_group(math.prod(dims))
+    stack = tuple((r, tuple(LayerSpec(*s) for s in pattern))
+                  for r, pattern in stack)
+    run_one(arch, shape, mesh=make_mesh(dims, ("pod", "data", "model")[
+        -len(dims):], "cpu"), dp_mode=mode, out_dir=out, tag=mode or "",
+        cfg_overrides={"n_layers": sum(r * len(p) for r, p in stack),
+                       "stack": stack})
+    return 0
+
+
 def _dry_run_procs(tmp: Path) -> list:
-    """One ``python -m repro_torch.launch.dryrun`` a cell of ``SHARD_DRY``,
+    """One ``python -m repro_torch.launch.dryrun`` a cell of ``SHARD_DRY``
+    and one ``chip_smoke.py --dry-cell`` a cell of ``SHARD_DRY_CUT``,
     started at once (stdout and stderr to files: nothing waits on a
     pipe)."""
     procs = []
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for i, spec in enumerate(SHARD_DRY_CUT):
+        out = tmp / f"drycut{i}"
+        out.mkdir()
+        with open(out / "log", "w") as log:
+            procs.append((out, subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--dry-cell",
+                 json.dumps(spec), str(out)], env=env, stdout=log,
+                stderr=subprocess.STDOUT)))
     for i, (arch, shape, mesh) in enumerate(SHARD_DRY):
         out = tmp / f"dryrun{i}"
         out.mkdir()
@@ -5198,17 +5255,22 @@ def _dry_run_procs(tmp: Path) -> list:
             argv += ["--dp-mode", "per_example"]
         with open(out / "log", "w") as log:
             procs.append((out, subprocess.Popen(
-                argv, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-                stdout=log, stderr=subprocess.STDOUT)))
+                argv, env=env, stdout=log, stderr=subprocess.STDOUT)))
     return procs
 
 
 def _dry_run_results(procs: list) -> None:
     """Wait for each dry-run cell, print its record, and fail the phase if
-    one exited non-zero (every process is ended first)."""
+    one exited non-zero or the per-example program's FLOPs break their
+    bar against its twin's (every process is ended first)."""
     deadline = time.monotonic() + SHARD_TIMEOUT_S
     failed = []
-    for (arch, shape, _), (out, proc) in zip(SHARD_DRY, procs):
+    labels = [(label, arch, shape, mode)
+              for label, arch, shape, _, mode, _ in SHARD_DRY_CUT]
+    labels += [(None, arch, shape, "per_example" if shape == "train_4k"
+                else None) for arch, shape, _ in SHARD_DRY]
+    pair = {}
+    for (label, arch, shape, mode), (out, proc) in zip(labels, procs):
         try:
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
@@ -5220,12 +5282,28 @@ def _dry_run_results(procs: list) -> None:
             continue
         rec = json.loads(next(out.glob("*.json")).read_text())
         terms = rec["roofline"]
-        say(f"phase 26 dry run {arch} x {shape} on {rec['mesh']} "
+        cut = (f" ({label}, {rec['cfg_overrides']['n_layers']} layer(s) of "
+               f"{get_config(arch).n_layers})" if label else "")
+        say(f"phase 26 dry run {arch} x {shape}{cut} on {rec['mesh']} "
             f"({rec['n_chips']} fake ranks, CPU, torch {torch.__version__},"
             f" nothing allocated, dp_mode "
             f"{rec['meta'].get('dp_mode', '-')}): flops {rec['flops']:.4e}, "
             f"collective bytes {rec['collective_bytes']:.4e}, bottleneck "
             f"{terms['bottleneck']}, traced in {rec['trace_s']:.1f} s")
+        if label == "per-example rules":
+            pair[mode] = rec
+    if len(pair) == 2:
+        pe, no_dp = pair["per_example"], pair["none"]
+        pods = 2 if pe["mesh"].count("x") == 2 else 1
+        ratio = pe["flops"] / no_dp["flops"]
+        ok = ratio <= SHARD_DRY_BAR * pods
+        say(f"phase 26 dry run per-example rules on {pe['mesh']} (CPU "
+            f"counts, not card times): per-example flops {pe['flops']:.4e} "
+            f"vs --dp-mode none {no_dp['flops']:.4e}, ratio {ratio:.3f} "
+            f"(bar {SHARD_DRY_BAR} x pod {pods}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"per-example FLOPs {ratio:.3f}x the no-DP "
+                          "program's")
     if failed:
         raise AssertionError("phase 26 dry run: " + "\n".join(failed))
 
@@ -5329,6 +5407,8 @@ def _shard_cells(tmp: Path, dry: list, smi) -> int:
 def main() -> int:
     if sys.argv[1:2] == ["--shard-rank"]:
         return shard_rank(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--dry-cell"]:
+        return dry_cell(sys.argv[2], sys.argv[3])
     smi = card()
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)

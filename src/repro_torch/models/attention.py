@@ -104,11 +104,12 @@ def _sdpa(q, k, v, mask):
     """q: [B,S,H,D]; k,v: [B,L,KV,D]; mask: [B,1,S,L] additive or None.
 
     The model's own plain attention, in float32 (``decode_kernel=False``).
-    DTensors whose keys are whole along the sequence take
-    ``_ShardedAttention``: the same products on each rank's own rows and
-    heads.
+    DTensors take ``_ShardedAttention``: the same products on each rank's
+    own rows and heads; a decode over a cache split along its sequence
+    (the keys split where q's rows are not) takes DTensor's own
+    propagation.
     """
-    if placements_of(q) is not None and not _seq_sharded(k):
+    if placements_of(q) is not None and not _keys_split_alone(q, k):
         return _ShardedAttention.apply(q, k, v, mask)[0]
     return _attend(q, k, v, mask)[0]
 
@@ -133,12 +134,19 @@ def _sdpa(q, k, v, mask):
 # DTensor keeps only on the kv heads, so where the kv heads do not divide
 # the "model" extent (32/4, 96/8, 32/8 heads over 16) the heads are made
 # whole and every "model" rank would run all of them; here each rank
-# picks its heads' keys out of whole ones instead.
+# picks its heads' keys out of whole ones instead.  Under the per-example
+# rules the sequence is split over "data" (a microbatch's few examples
+# stay whole): each rank then takes its block of q's rows, attends over
+# keys and values made whole along the sequence (an all-gather), and
+# hands their gradients back to its own block (a reduce-scatter).
 
 
-def _seq_sharded(k) -> bool:
-    """Whether a DTensor's dim 1 (the keys' sequence) is split."""
-    return any(p.is_shard(1) for p in placements_of(k) or ())
+def _keys_split_alone(q, k) -> bool:
+    """Whether a mesh dim splits the keys' sequence (dim 1) but not q's
+    rows: a decode over a cache split along its sequence."""
+    pq, pk = placements_of(q), placements_of(k) or ()
+    return any(p.is_shard(1) and not (pq and pq[md].is_shard(1))
+               for md, p in enumerate(pk))
 
 
 def _attend(q, k, v, mask):
@@ -176,12 +184,14 @@ def _attend_grad(q, k, v, probs, dout):
 
 
 class _Layout:
-    """Where each rank's attention lives.  Each mesh dim keeps the split
-    the keys have (the larger operand: a decode's cache), else q's, if it
-    is of the batch (dim 0) or of the heads (dim 2, where the heads
-    divide): q and the output are split there, and the keys too, by their
-    KV heads where those divide as well (else each rank picks its heads'
-    keys out of whole ones).  Everything else is made whole."""
+    """Where each rank's attention lives.  A mesh dim that splits q's rows
+    (dim 1: the per-example rules' sequence) keeps them split, and the
+    keys are whole there.  Every other mesh dim keeps the split the keys
+    have (the larger operand: a decode's cache), else q's, if it is of the
+    batch (dim 0) or of the heads (dim 2, where the heads divide): q and
+    the output are split there, and the keys too, by their KV heads where
+    those divide as well (else each rank picks its heads' keys out of
+    whole ones).  Everything else is made whole."""
 
     def __init__(self, q, k):
         from torch.distributed.tensor import Replicate, Shard
@@ -193,8 +203,12 @@ class _Layout:
         h, kvh = q.shape[2], k.shape[2]
         self.mesh = mesh
         order = (k, q) if k.numel() >= q.numel() else (q, k)
-        self.pq, heads, head_dims = [], 1, []
+        self.pq, heads, head_dims, self.row_dims = [], 1, [], []
         for md in range(mesh.ndim):
+            if q.placements[md].is_shard(1):
+                self.row_dims.append(md)
+                self.pq.append(Shard(1))
+                continue
             dims = [p.dim for p in (x.placements[md] for x in order
                                     if hasattr(x, "placements"))
                     if type(p) is Shard and p.dim in (0, 2)]
@@ -209,14 +223,18 @@ class _Layout:
                 head_dims.append(md)
                 self.pq.append(Shard(2))
         self.kv_split = kvh % heads == 0
-        self.pk = [Replicate() if md in head_dims and not self.kv_split
-                   else p for md, p in enumerate(self.pq)]
+        self.pk = [Replicate() if md in self.row_dims or
+                   (md in head_dims and not self.kv_split) else p
+                   for md, p in enumerate(self.pq)]
         self.head_dims = head_dims
-        # the probabilities [B, H, S, L]: q's splits, heads at dim 1
-        self.pp = [Shard(1) if p.is_shard(2) else p for p in self.pq]
+        # the probabilities [B, H, S, L]: q's splits, heads at dim 1 and
+        # rows at dim 2
+        self.pp = [Shard({1: 2, 2: 1}.get(p.dim, p.dim)) if p.is_shard()
+                   else p for p in self.pq]
         shape, off = compute_local_shape_and_global_offset(
             tuple(q.shape), mesh, self.pq)
         self.rows = (off[0], shape[0])
+        self.q_rows = (off[1], shape[1])
         # the KV head of each local q head, where the keys stay whole
         self.kv_of = None if self.kv_split else \
             (off[2] + torch.arange(shape[2])) // (h // kvh)
@@ -229,6 +247,8 @@ class _Layout:
         mask = local_block(mask, self.mesh, [Replicate()] * self.mesh.ndim)
         if mask.shape[0] > 1:
             mask = mask[self.rows[0]:self.rows[0] + self.rows[1]]
+        if self.row_dims:
+            mask = mask[:, :, self.q_rows[0]:self.q_rows[0] + self.q_rows[1]]
         return mask
 
     def local_qkv(self, q, k, v):
@@ -238,6 +258,22 @@ class _Layout:
             idx = self.kv_of.to(k.device)
             k, v = k.index_select(2, idx), v.index_select(2, idx)
         return q, k, v
+
+    def key_grad(self, g, k):
+        """A key's gradient [B, L, KV, D] from this rank's block: pending
+        sums over the mesh dims where each rank picked its heads' keys or
+        attended from its own rows; the rows' sums are reduce-scattered
+        back to the keys' own split of the sequence."""
+        from torch.distributed.tensor import Partial
+
+        pk = [Partial() if md in self.row_dims or
+              (md in self.head_dims and self.kv_of is not None) else p
+              for md, p in enumerate(self.pk)]
+        g = from_block(g, self.mesh, pk, k.shape)
+        back = [k.placements[md] if md in self.row_dims and
+                k.placements[md].is_shard(1) else p
+                for md, p in enumerate(pk)]
+        return g if back == pk else g.redistribute(self.mesh, back)
 
 
 class _ShardedAttention(torch.autograd.Function):
@@ -253,7 +289,7 @@ class _ShardedAttention(torch.autograd.Function):
         b, kvh, g, s, l = probs.shape
         return (from_block(out, lay.mesh, lay.pq, q.shape),
                 from_block(probs.reshape(b, kvh * g, s, l), lay.mesh,
-                           lay.pp, (q.shape[0], q.shape[2], s, l)))
+                           lay.pp, (q.shape[0], q.shape[2], q.shape[1], l)))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -284,13 +320,10 @@ class _ShardedAttention(torch.autograd.Function):
 
 class _ShardedAttentionGrad(torch.autograd.Function):
     """``_attend_grad`` of DTensors on each rank's own shards: dq in q's
-    layout; dk and dv in the keys', pending a sum over the mesh dims that
-    split q's heads where each rank picked its heads' keys."""
+    layout; dk and dv in the keys' (``_Layout.key_grad``)."""
 
     @staticmethod
     def forward(q, k, v, probs, dout):
-        from torch.distributed.tensor import Partial
-
         lay = _Layout(q, k)
         ql, kl, vl = lay.local_qkv(q, k, v)
         pl = local_block(probs, lay.mesh, lay.pp)
@@ -299,18 +332,14 @@ class _ShardedAttentionGrad(torch.autograd.Function):
         dq, dk, dv = _attend_grad(ql, kl, vl,
                                   pl.reshape(b, kvh, hl // kvh, s, l),
                                   local_block(dout, lay.mesh, lay.pq))
-        pk = list(lay.pk)
         if lay.kv_of is not None:
             # each local head's key gradient back onto its KV head
             idx = lay.kv_of.to(dk.device)
             shape = (b, l, k.shape[2], k.shape[3])
             dk = dk.new_zeros(shape).index_add_(2, idx, dk)
             dv = dv.new_zeros(shape).index_add_(2, idx, dv)
-            pk = [Partial() if md in lay.head_dims else p
-                  for md, p in enumerate(pk)]
         return (from_block(dq, lay.mesh, lay.pq, q.shape),
-                from_block(dk, lay.mesh, pk, k.shape),
-                from_block(dv, lay.mesh, pk, v.shape))
+                lay.key_grad(dk, k), lay.key_grad(dv, v))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -429,9 +458,12 @@ def gqa_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     k = _split_heads(matmul(x, p["wk"]), kv, hd)
     v = _split_heads(matmul(x, p["wv"]), kv, hd)
     q, k = rope(q, k, positions, cfg, mrope_positions)
-    q = shard(q, "attn_batch", None, "heads", None)
-    k = shard(k, "attn_batch", None, None, None)
-    v = shard(v, "attn_batch", None, None, None)
+    # the reference's hints, and the rules' sequence split, which only
+    # the per-example rules give (``_ShardedAttention`` keeps q's rows
+    # split and makes the keys whole)
+    q = shard(q, "attn_batch", "seq", "heads", None)
+    k = shard(k, "attn_batch", "seq", None, None)
+    v = shard(v, "attn_batch", "seq", None, None)
     if cfg.use_flash:
         if causal and q.device.type == "cuda":
             # blocks of the whole sequence: the kernel's own tiles mask

@@ -110,6 +110,18 @@ def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
         activation_spec(x.shape, axes, rules), mesh))
 
 
+def token_axis() -> str:
+    """The logical axis of the tokens' split across ranks: "batch", or
+    "seq" under rules that keep the batch whole and split the sequence
+    (the per-example rules: a microbatch's few examples, each split along
+    its sequence), where a grouping of the tokens in order (the MoE
+    groups) follows the sequence's split."""
+    rules = getattr(_SHARDING, "rules", None)
+    if rules and rules.get("batch") is None and rules.get("seq"):
+        return "seq"
+    return "batch"
+
+
 def split_dim(x: torch.Tensor, dim: int, n: int, rest: int) -> torch.Tensor:
     """``x`` with dim ``dim`` (of size n * rest) split into (n, rest): a
     view of a plain tensor.
@@ -146,14 +158,18 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     rank's blocks (``placement.einsum``): ``@`` flattens the leading dims,
     and where the sequence is split under the unsplit examples of a
     ``vmap`` (the per-example rules) that flat dim is a strided split,
-    which torch's redistribute planner searches for minutes.
+    which torch's redistribute planner searches for minutes.  The
+    activation's splits come first (``keep_a``): a weight larger than one
+    example's activation is gathered where its FSDP split would otherwise
+    make the activation's split sequence whole.
     """
     dt = torch.promote_types(a.dtype, b.dtype)
     a, b = a.to(dt), b.to(dt)
     if b.ndim == 2 and a.ndim > 2 and not hasattr(a, "placements") and \
             placements_of(a) is not None:
         rows = "abcdefgh"[:a.ndim]
-        return einsum(f"{rows},{rows[-1]}z->{rows[:-1]}z", a, b)
+        return einsum(f"{rows},{rows[-1]}z->{rows[:-1]}z", a, b,
+                      keep_a=True)
     return a @ b
 
 

@@ -38,7 +38,9 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, matmul, shard, split_dim
+from repro_torch.models.layers import (dense_init, matmul, shard, split_dim,
+                                       token_axis)
+from repro_torch.models.placement import add_residual, merge_dims
 
 
 def moe_init(cfg, dtype: torch.dtype, generator: torch.Generator | None,
@@ -132,7 +134,9 @@ def _experts(buf: torch.Tensor, p: dict) -> torch.Tensor:
     expert's [D, F] and [F, D]), in the promoted dtype, as ``jnp.einsum``
     computes them.
     """
-    buf = shard(buf, "batch", "experts", None, None)
+    # the groups split as the tokens are: by the batch, or, under the
+    # per-example rules, by the sequence (``layers.token_axis``)
+    buf = shard(buf, token_axis(), "experts", None, None)
     g, e, c, d = buf.shape
     dt = functools.reduce(torch.promote_types, (
         buf.dtype, p["w_gate"].dtype, p["w_up"].dtype, p["w_down"].dtype))
@@ -142,8 +146,8 @@ def _experts(buf: torch.Tensor, p: dict) -> torch.Tensor:
     # the reference's [G, E, C, F] hint on the rows' [E, G*C, F] layout
     h = shard(F.silu(gate) * up, "experts", None, None)
     y = torch.bmm(h, p["w_down"].to(dt))
-    return shard(y.reshape(e, g, c, d).transpose(0, 1), "batch", "experts",
-                 None, None)
+    return shard(y.reshape(e, g, c, d).transpose(0, 1), token_axis(),
+                 "experts", None, None)
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg, *, groups: int | None = None,
@@ -190,9 +194,12 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, *, groups: int | None = None,
                                 capacity)
     y = _combine_group(_experts(buf, p), meta,
                        split_dim(top_probs, 0, groups, tg), tg, k)
-    y = y.reshape(b, s, d)
+    # back to [B, S, D] through the tokens' flat view: the groups' split
+    # of the tokens is placed back as the batch's (and, under a
+    # gradient, the gradient's split of the batch as the groups')
+    y = split_dim(merge_dims(y, 0), 0, b, s)
     if cfg.n_shared_experts:
         gate_s = F.silu(matmul(x, p["w_shared_gate"]))
         up_s = matmul(x, p["w_shared_up"])
-        y = y + matmul(gate_s * up_s, p["w_shared_down"])
+        y = add_residual(y, matmul(gate_s * up_s, p["w_shared_down"]))
     return y.to(x.dtype), aux

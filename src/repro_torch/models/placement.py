@@ -26,10 +26,21 @@ path changes.  On DTensors (a mesh's dry run or the ``shard`` backend):
     cannot index while two mesh dims split one of their dims;
   * ``merge_dims``: a merge of two dims that DTensor can flatten, whose
     gradient, under ``torch.func``, comes back placed as the value is;
-  * ``rows``: a microbatch's rows, split over the ranks as the batch's.
+  * ``rows``: a microbatch's rows, split over the ranks as the batch's;
+  * ``shift_rows``: a sequence moved down by a few rows (RWKV's token
+    shift, a causal conv's taps) on each rank's block, the rows at a
+    block's edge taken from its neighbour (torch 2.11's DTensor has no
+    working rule for ``constant_pad_nd`` on a mesh of more than one dim);
+  * ``add_residual``: a residual add whose branch output's pending sum is
+    reduced to the stream's placements first (torch 2.11's DTensor cannot
+    turn a split stream into a pending sum);
+  * ``as_param``: a parameter whose gradient, under ``torch.func``, comes
+    back in its own placements (a tied embedding's two uses).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch._C import _functorch as ft
@@ -137,7 +148,8 @@ class _Redistribute(torch.autograd.Function):
         return _Redistribute.apply(x, tuple(phys)), 0
 
 
-def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor, *,
+           keep_a: bool = False) -> torch.Tensor:
     """``torch.einsum(eq, a, b)``; DTensors (under ``torch.func``
     transforms too) multiply on each rank's own shards.
 
@@ -150,11 +162,15 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     instead (the one it already splits in the larger operand): an
     operand with that letter is split there, one without it whole, and
     the product of the local blocks is this rank's block of the output,
-    or its part of a pending sum when the letter is summed over."""
+    or its part of a pending sum when the letter is summed over.
+    ``keep_a``: ``a``'s splits come first whatever its size (an
+    activation times a weight: the weight is gathered, FSDP's way, where
+    one example's activation is smaller than the weight and the per-
+    example rules split its sequence)."""
     if (placements_of(a) is None and placements_of(b) is None) or \
             not _einsum_transposable(eq):
         return torch.einsum(eq, a, b)
-    return _LocalEinsum.apply(eq, a, b)
+    return _LocalEinsum.apply(eq, a, b, keep_a)
 
 
 def _einsum_terms(eq: str) -> tuple[str, str, str]:
@@ -170,7 +186,7 @@ def _einsum_transposable(eq: str) -> bool:
     return set(left) <= set(right + out) and set(right) <= set(left + out)
 
 
-def _einsum_plan(eq: str, a, b):
+def _einsum_plan(eq: str, a, b, keep_a: bool = False):
     """Placements of a, b and the output, one letter per mesh dim."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
@@ -180,7 +196,7 @@ def _einsum_plan(eq: str, a, b):
     pa = pa or [Replicate()] * mesh.ndim
     pb = pb or [Replicate()] * mesh.ndim
     big = (a, left, pa), (b, right, pb)
-    if b.numel() > a.numel():
+    if b.numel() > a.numel() and not keep_a:
         big = big[::-1]
     plan = ([], [], [])
     for md in range(mesh.ndim):
@@ -207,8 +223,8 @@ class _LocalEinsum(torch.autograd.Function):
     and an einsum for each operand's gradient."""
 
     @staticmethod
-    def forward(eq, a, b):
-        mesh, (pa, pb, po) = _einsum_plan(eq, a, b)
+    def forward(eq, a, b, keep_a):
+        mesh, (pa, pb, po) = _einsum_plan(eq, a, b, keep_a)
         out = torch.einsum(eq, local_block(a, mesh, pa),
                            local_block(b, mesh, pb))
         left, right, terms = _einsum_terms(eq)
@@ -219,7 +235,7 @@ class _LocalEinsum(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        eq, a, b = inputs
+        eq, a, b, ctx.keep_a = inputs
         ctx.eq = eq
         ctx.save_for_backward(a, b)
 
@@ -227,23 +243,24 @@ class _LocalEinsum(torch.autograd.Function):
     def backward(ctx, grad):
         a, b = ctx.saved_tensors
         left, right, out = _einsum_terms(ctx.eq)
-        da = einsum(f"{out},{right}->{left}", grad, b) \
+        da = einsum(f"{out},{right}->{left}", grad, b, keep_a=ctx.keep_a) \
             if ctx.needs_input_grad[1] else None
         db = einsum(f"{left},{out}->{right}", a, grad) \
             if ctx.needs_input_grad[2] else None
-        return None, da, db
+        return None, da, db, None
 
     @staticmethod
-    def vmap(info, in_dims, eq, a, b):
+    def vmap(info, in_dims, eq, a, b, keep_a):
         left, right, out = _einsum_terms(eq)
         z = next(c for c in "zyxwvutsrqponmlkjihgfedcba"
                  if c not in left + right + out)
-        _, da, db = in_dims
+        _, da, db, _ = in_dims
         if da is not None:
             a, left = a.movedim(da, 0), z + left
         if db is not None:
             b, right = b.movedim(db, 0), z + right
-        return _LocalEinsum.apply(f"{left},{right}->{z}{out}", a, b), 0
+        return _LocalEinsum.apply(f"{left},{right}->{z}{out}", a, b,
+                                  keep_a), 0
 
 
 def on_local_shards(fn, args: tuple, dims: tuple, out_dims: tuple):
@@ -256,9 +273,16 @@ def on_local_shards(fn, args: tuple, dims: tuple, out_dims: tuple):
     without one is whole along that role), ``out_dims[j]`` the outputs'.
     Each mesh dim keeps the role it splits ``args[0]`` by; everything
     else is made whole.  A scan's chunk loop then dispatches plain ops
-    (one per chunk and step) instead of DTensor ones."""
-    if not hasattr(args[0], "placements") or torch.is_grad_enabled():
+    (one per chunk and step) instead of DTensor ones.  Where a gradient
+    is taken (or under ``torch.func``) DTensor runs ``fn``'s ops, on
+    arguments whose sequence (dim 1 of an argument with a "batch" role)
+    is made whole first, once: a scan is sequential, and its chunk loop
+    would otherwise gather the sequence at each chunk's slice."""
+    if placements_of(args[0]) is None:
         return fn(*args)
+    if not hasattr(args[0], "placements") or torch.is_grad_enabled():
+        return fn(*(_whole_along(a, 1) if "batch" in d else a
+                    for a, d in zip(args, dims)))
     from torch.distributed.tensor import Replicate, Shard
 
     mesh, first = args[0].device_mesh, args[0].placements
@@ -278,6 +302,18 @@ def on_local_shards(fn, args: tuple, dims: tuple, out_dims: tuple):
             shape[d] = size[r]
         outs.append(from_block(y, mesh, placed(where), shape))
     return tuple(outs)
+
+
+def _whole_along(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with the mesh dims that split its ``dim`` made whole (``x``
+    itself where none does)."""
+    placements = placements_of(x)
+    if placements is None or not any(p.is_shard(dim) for p in placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return redistribute(x, [Replicate() if p.is_shard(dim) else p
+                            for p in placements])
 
 
 def _contiguous_stride(shape) -> tuple:
@@ -392,16 +428,29 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table[ids]
 
 
+def as_param(t: torch.Tensor) -> torch.Tensor:
+    """``t``.  A DTensor parameter under ``torch.func``'s transforms is
+    re-placed as it is (a no-op forward), so that the gradient of this use
+    comes back in the parameter's own placements: a parameter used twice
+    (a tied embedding: the lookup and the head) then adds its two
+    gradients in one placement, where torch 2.11's DTensor would turn one
+    of them from a split into a pending sum, which it cannot."""
+    placements = placements_of(t)
+    if placements is None or hasattr(t, "placements"):
+        return t
+    return _Redistribute.apply(t, tuple(placements))
+
+
 def summed(x: torch.Tensor) -> torch.Tensor:
     """A DTensor's pending sums summed, its other placements kept; ``x``
     itself otherwise.  An embedding of a vocab-split table is a pending
     masked sum, which DTensor cannot concatenate with another tensor (it
     would mask that one too)."""
-    from torch.distributed.tensor import Replicate
-
     placements = placements_of(x)
     if placements is None or not any(p.is_partial() for p in placements):
         return x
+    from torch.distributed.tensor import Replicate
+
     return redistribute(x, [Replicate() if p.is_partial() else p
                             for p in placements])
 
@@ -456,3 +505,117 @@ def merge_dims(x: torch.Tensor, dim: int = -2) -> torch.Tensor:
     if placements is None or hasattr(y, "placements"):
         return y
     return _Redistribute.apply(y, tuple(placements_of(y)))
+
+
+def shift_rows(x: torch.Tensor, n: int = 1) -> torch.Tensor:
+    """``x`` [B, S, ...] moved ``n`` rows down its dim 1, zeros in the first
+    ``n``: ``F.pad(x, (0, 0, ..., n, 0))[:, :-n]`` (``x`` itself at n = 0).
+
+    A DTensor (under ``torch.func`` transforms too) is shifted on each
+    rank's own block, whose first ``n`` rows are the last ``n`` of the
+    block before it along dim 1: those rows are all-gathered over the mesh
+    dims that split dim 1 (``n`` rows a rank), nothing else moves.  A dim
+    whose blocks are uneven is made whole first.  torch 2.11's DTensor
+    places ``constant_pad_nd`` on one mesh dim only, and fails on any
+    larger mesh.  The values are the pad's, bit for bit."""
+    if n == 0:
+        return x
+    if placements_of(x) is None:
+        pad = (0, 0) * (x.ndim - 2) + (n, 0)
+        return torch.nn.functional.pad(x, pad)[:, :-n]
+    return _ShiftRows.apply(x, n, 1)
+
+
+def _shifted(x: torch.Tensor, n: int, dim: int,
+             edge: torch.Tensor | None) -> torch.Tensor:
+    """A plain ``x`` moved ``n`` rows along ``dim`` (up when n < 0), the
+    ``|n|`` rows that enter being ``edge`` (zeros when None)."""
+    m, size = abs(n), x.shape[dim]
+    if edge is None:
+        shape = list(x.shape)
+        shape[dim] = m
+        edge = x.new_zeros(shape)
+    if n > 0:
+        return torch.cat([edge, x.narrow(dim, 0, size - m)], dim)
+    return torch.cat([x.narrow(dim, m, size - m), edge], dim)
+
+
+def _shift_blocks(x, n: int, dim: int):
+    """``_shifted`` of the DTensor ``x`` on each rank's block, in ``x``'s
+    placements (``shift_rows``'s docstring)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    mesh = x.device_mesh
+    splits = [md for md, p in enumerate(x.placements)
+              if p.is_shard(dim) and mesh.size(md) > 1]
+    blocks = math.prod(mesh.size(md) for md in splits)
+    if x.shape[dim] % blocks or x.shape[dim] // blocks < abs(n):
+        x = redistribute(x, [Replicate() if md in splits else p
+                             for md, p in enumerate(x.placements)])
+        splits, blocks = [], 1
+    placements, local = list(x.placements), x.to_local()
+    edge = None
+    if splits:
+        m, size = abs(n), local.shape[dim]
+        mine = local.narrow(dim, size - m if n > 0 else 0, m)
+        shape = list(x.shape)
+        shape[dim] = blocks * m
+        whole = [Replicate() if md in splits else p
+                 for md, p in enumerate(placements)]
+        edges = from_block(mine, mesh, placements, shape).redistribute(
+            mesh, whole).to_local()
+        _, offset = compute_local_shape_and_global_offset(
+            x.shape, mesh, placements)
+        j = offset[dim] // size - (1 if n > 0 else -1)  # the neighbour
+        if 0 <= j < blocks:
+            edge = edges.narrow(dim, j * m, m)
+    return from_block(_shifted(local, n, dim, edge), mesh, placements,
+                      x.shape)
+
+
+class _ShiftRows(torch.autograd.Function):
+    """``shift_rows`` of a DTensor, with ``vmap`` rules; the gradient is
+    the output's gradient shifted back the other way."""
+
+    @staticmethod
+    def forward(x, n, dim):
+        return _shift_blocks(x, n, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n, ctx.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ShiftRows.apply(grad, -ctx.n, ctx.dim), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, n, dim):
+        if in_dims[0] is None:
+            return _ShiftRows.apply(x, n, dim), None
+        return _ShiftRows.apply(x.movedim(in_dims[0], 0), n, dim + 1), 0
+
+
+def add_residual(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``x + h``: a branch's output ``h`` added to the residual stream
+    ``x``.  On DTensors (under ``torch.func`` transforms too) ``h`` is first
+    placed as ``x`` is, its pending sums (a row-parallel or expert
+    output's) reduced there, as the reference's hints place the FFN's
+    output; where ``x`` itself is a pending sum and ``h`` is not, ``x`` is
+    reduced as well.  torch 2.11's DTensor cannot turn a split ``x`` into a
+    pending sum, which is what its add would ask for."""
+    px, ph = placements_of(x), placements_of(h)
+    if px is None or ph is None:
+        return x + h
+    from torch.distributed.tensor import Replicate
+
+    want = [Replicate() if p.is_partial() and not q.is_partial() else p
+            for p, q in zip(px, ph)]
+    if want != px:
+        x = redistribute(x, want)
+    if want != ph:
+        h = redistribute(h, want)
+    return x + h

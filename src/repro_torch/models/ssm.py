@@ -38,7 +38,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (dense_init, init_device, matmul,
                                        shard, split_last)
-from repro_torch.models.placement import einsum, merge_dims, on_local_shards
+from repro_torch.models.placement import (einsum, merge_dims,
+                                          on_local_shards, shift_rows, summed)
 
 
 def _draw(t: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
@@ -118,10 +119,11 @@ def mamba_init(cfg, dtype: torch.dtype, generator: torch.Generator | None,
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
-    """Depthwise causal conv along S.  x: [B,S,DI]; w: [K,DI]; b: [DI]."""
-    k, s = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, k - 1, 0))
-    return sum(pad[:, i:i + s] * w[i] for i in range(k)) + b
+    """Depthwise causal conv along S.  x: [B,S,DI]; w: [K,DI]; b: [DI].
+    Tap i reads x moved k - 1 - i rows down (``shift_rows``: the padded
+    sequence's slice, on each rank's block of a split sequence)."""
+    k = w.shape[0]
+    return sum(shift_rows(x, k - 1 - i) * w[i] for i in range(k)) + b
 
 
 def _ssm_scan(u, dt, a, b, c, chunk: int = 256) -> torch.Tensor:
@@ -155,9 +157,15 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     ds = cfg.mamba_d_state
     xz = matmul(x, p["w_in"])
     xi, z = xz[..., :di], xz[..., di:]
-    xi = shard(xi, "batch", None, "mlp")
+    # the reference's hint, and the rules' sequence split, which only the
+    # per-example rules give (the conv's taps and the projections run on
+    # each rank's rows; the scan makes the sequence whole)
+    xi = shard(xi, "batch", "seq", "mlp")
     xi = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
-    bcdt = matmul(xi, p["w_bcdt"])
+    # the product's pending sum over the width's ranks reduced before the
+    # slices (288 columns at Jamba's width): torch 2.11's DTensor would
+    # turn dt_bias's split into a pending sum at the add below
+    bcdt = summed(matmul(xi, p["w_bcdt"]))
     b, c = bcdt[..., :ds], bcdt[..., ds:2 * ds]
     dt = F.softplus(matmul(bcdt[..., 2 * ds:], p["w_dt"]) + p["dt_bias"])
     a = -torch.exp(p["a_log"])
@@ -323,7 +331,7 @@ def _rwkv_proj(p: dict, x: torch.Tensor, x_prev: torch.Tensor, cfg):
 
 def rwkv6_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """Full-sequence RWKV6 time mix.  x: [B,S,D] -> [B,S,D]."""
-    x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    x_prev = shift_rows(x)
     r, k, v, g, w = _rwkv_proj(p, x, x_prev, cfg)
     scan = (_rwkv_wkv_scan_quadratic if cfg.rwkv_chunk_impl == "quadratic"
             else _rwkv_wkv_scan)

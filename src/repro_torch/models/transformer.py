@@ -98,7 +98,13 @@ from repro_torch.models.layers import (
     trunc_normal,
 )
 from repro_torch.models.moe import moe_apply, moe_init
-from repro_torch.models.placement import placements_of, summed, take_rows
+from repro_torch.models.placement import (
+    add_residual,
+    as_param,
+    placements_of,
+    summed,
+    take_rows,
+)
 from repro_torch.models.ssm import (
     mamba_apply,
     mamba_decode,
@@ -327,9 +333,17 @@ def text_logits(cfg, logits: torch.Tensor, batch: dict) -> torch.Tensor:
     return logits
 
 
+def embed_of(cfg, params: dict) -> torch.Tensor:
+    """The [V,D] embedding table.  Tied to the head it has two uses, whose
+    gradients each come back in the table's own placements on DTensors
+    under ``torch.func`` (``placement.as_param``)."""
+    return as_param(params["embed"]) if cfg.tie_embeddings \
+        else params["embed"]
+
+
 def head_of(cfg, params: dict) -> torch.Tensor:
     """The [D,V] output projection (the embedding's transpose when tied)."""
-    return params["embed"].T if cfg.tie_embeddings else params["head"]
+    return embed_of(cfg, params).T if cfg.tie_embeddings else params["head"]
 
 
 def _ffn(cfg, spec, p: dict, h: torch.Tensor, moe_groups: int | None = None,
@@ -360,7 +374,7 @@ def _layer_apply(cfg, spec, p: dict, x: torch.Tensor, positions,
     if spec.cross_attn and enc_out is not None:
         x = x + cross_apply(p, _norm(cfg, p, "norm_cross", x), enc_out, cfg)
     h, aux = _ffn(cfg, spec, p, _norm(cfg, p, "norm2", x), with_aux=with_aux)
-    return x + h, aux
+    return add_residual(x, h), aux
 
 
 def _encode(cfg, params: dict, frames: torch.Tensor) -> torch.Tensor:
@@ -386,7 +400,7 @@ def _hidden(cfg, params: dict, batch: dict) -> tuple[torch.Tensor,
     enc_out = (_encode(cfg, params, batch["frames"])
                if cfg.is_encoder_decoder else None)
     tokens = batch["tokens"].long()
-    x = take_rows(params["embed"], tokens).to(cfg.cdtype)
+    x = take_rows(embed_of(cfg, params), tokens).to(cfg.cdtype)
     x = prefix_vision(cfg, x, batch)
     x = shard(x, "batch", "seq", None)
     b, s, _ = x.shape
@@ -572,7 +586,8 @@ def _layer_decode(cfg, spec, p: dict, x: torch.Tensor, c: dict,
         x = x + cross_decode(p, _norm(cfg, p, "norm_cross", x), c["cross"],
                              cfg)
     h = _norm(cfg, p, "norm2", x)
-    return x + _ffn(cfg, spec, p, h, moe_groups, with_aux=False)[0]
+    return add_residual(x, _ffn(cfg, spec, p, h, moe_groups,
+                                with_aux=False)[0])
 
 
 def _decode(cfg, params: dict, cache: dict, tokens: torch.Tensor,

@@ -10,9 +10,13 @@ sharded KV cache, by batch and heads (SmolLM-360M ``decode_32k``) and by
 sequence (``long_500k``, windowed); the MoE prefill on the (2, 2, 2) and
 the 512-rank (2, 16, 16) meshes, whose tokens split over ("pod", "data");
 SmolLM-360M ``prefill_32k`` on the 512-rank mesh; SmolLM-360M
-``train_4k`` on (16, 16), whose total FLOPs stay near (4, 2)'s; and at
-one rank the dry run's FLOPs equal ``launch.roofline.analyze_program``'s
-for the same program.  Nothing is allocated: every argument is a meta DTensor, at full
+``train_4k`` on (16, 16), whose total FLOPs stay near (4, 2)'s; two
+per-example programs under the per-example rules (a microbatch the
+("pod", "data") ranks do not divide: SmolLM-360M at 2 layers and a
+microbatch of 2 on (2, 8, 2), a Mamba + MoE layer of Jamba on (8, 2)),
+each held against its ``--dp-mode none`` twin; and at one rank the dry
+run's FLOPs equal ``launch.roofline.analyze_program``'s for the same
+program.  Nothing is allocated: every argument is a meta DTensor, at full
 width.
 """
 
@@ -33,6 +37,11 @@ from repro_torch.launch.mesh import init_fake_group, make_mesh
 
 arch, shape, out = sys.argv[1], sys.argv[2], sys.argv[4]
 dp_mode = sys.argv[5] if len(sys.argv) > 5 else None
+over = json.loads(sys.argv[6]) if len(sys.argv) > 6 else None
+if over and "stack" in over:     # [[repeat, [[mixer, ffn], ...]], ...]
+    from repro_torch.configs.base import LayerSpec
+    over["stack"] = tuple((r, tuple(LayerSpec(*spec) for spec in pattern))
+                          for r, pattern in over["stack"])
 dims = tuple(int(x) for x in sys.argv[3].split(","))
 names = {1: ("data",), 2: ("data", "model"),
          3: ("pod", "data", "model")}[len(dims)]
@@ -41,7 +50,7 @@ if len(dims) == 1:
 init_fake_group(math.prod(dims))
 mesh = make_mesh(dims, names, "cpu")
 rec = run_one(arch, shape, mesh=mesh, out_dir=out, dp_mode=dp_mode,
-              tag=dp_mode or "")
+              tag=dp_mode or "", cfg_overrides=over)
 result = {k: rec[k] for k in ("flops", "flops_per_rank", "collective_bytes",
                               "useful_flops_ratio", "n_chips", "mesh",
                               "argument_bytes_per_rank",
@@ -57,6 +66,11 @@ if sys.argv[3] == "1":
 print("RESULT::" + json.dumps(result))
 """
 
+DENSE_CUT = json.dumps({"n_layers": 2, "dp_microbatch": 2,
+                        "stack": [[2, [["attn", "dense"]]]]})
+MAMBA_MOE_CUT = json.dumps({"n_layers": 1,
+                            "stack": [[1, [["mamba", "moe"]]]]})
+
 CELLS = {
     "train_single_pod": ("smollm-360m", "train_4k", "4,2"),
     "train_multi_pod": ("olmo-1b", "train_4k", "2,2,2"),
@@ -71,6 +85,16 @@ CELLS = {
     "moe_prefill_multi_pod": ("qwen3-moe-30b-a3b", "prefill_32k",
                               "2,16,16"),
     "production_multi_pod": ("smollm-360m", "prefill_32k", "2,16,16"),
+    # per-example rules: 2 examples a microbatch over ("pod", "data") of 4
+    # x 8 ranks, and Jamba's one example over 8 "data" ranks; cut depths
+    "rules_dense": ("smollm-360m", "train_4k", "2,8,2", "per_example",
+                    DENSE_CUT),
+    "rules_dense_no_dp": ("smollm-360m", "train_4k", "2,8,2", "none",
+                          DENSE_CUT),
+    "rules_mamba_moe": ("jamba-v0.1-52b", "train_4k", "8,2",
+                        "per_example", MAMBA_MOE_CUT),
+    "rules_mamba_moe_no_dp": ("jamba-v0.1-52b", "train_4k", "8,2", "none",
+                              MAMBA_MOE_CUT),
     "one_rank": ("smollm-360m", "prefill_32k", "1"),
 }
 
@@ -126,6 +150,20 @@ def test_dryrun_train_per_example_keeps_the_batch_split(records):
     assert big["n_chips"] == 256 and big["mesh"] == "16x16"
     assert big["flops"] < 1.05 * no_dp["flops"]
     assert big["flops"] < 8.0 * small["flops"]
+
+
+@pytest.mark.parametrize("pair", ["rules_dense", "rules_mamba_moe"])
+def test_dryrun_per_example_rules_split_the_sequence(records, pair):
+    # the per-example rules keep a microbatch's examples whole and split
+    # each one's sequence over "data": its forward and backward run on its
+    # rank's rows (attention's q rows, the projections, the conv's taps,
+    # the MoE groups), so the program does the no-DP program's work, up
+    # to the "pod" ranks that the examples cannot fill.  Attention (and
+    # Mamba from its hint on) running on every "data" rank breaks the bar
+    rec, twin = _rec(records, pair), _rec(records, f"{pair}_no_dp")
+    pod = 2 if rec["mesh"] == "2x8x2" else 1
+    assert rec["flops"] <= 1.25 * pod * twin["flops"]
+    assert twin["flops"] > 1e14
 
 
 def test_dryrun_decode_long_context_ssm(records):

@@ -12,7 +12,18 @@ a DTensor call against the same call on plain tensors:
   * ``moe.moe_apply`` with the tokens split over ("pod", "data") into
     fewer groups than blocks gives the plain output within 1e-5;
   * ``layers.split_dim`` inside ``torch.func.vmap`` makes an uneven head
-    split (15 heads of a dim split over 2 ranks) whole before the view.
+    split (15 heads of a dim split over 2 ranks) whole before the view;
+  * attention with q, k and v split along the sequence (the per-example
+    rules) gives ``_attend``'s output and its q, k and v gradients within
+    1e-5, by autograd and under ``torch.func.vmap`` of ``grad``, each
+    gradient in its input's placements (a pending sum only where each
+    "model" rank picked its heads' keys out of whole ones);
+  * ``placement.shift_rows`` (RWKV's token shift), Mamba's causal conv
+    and ``ssm.mamba_apply`` on a sequence- or width-split DTensor equal
+    the plain calls bit for bit, the shift's gradient too;
+  * ``placement.add_residual`` reaches the residual add with the stream's
+    placements and no pending sum, for a row-parallel FFN, a MoE and a
+    pending branch beside a split stream that is itself a pending sum.
 
 And on plain tensors (a subprocess of its own): the one-card serving
 path never loads ``torch.distributed.tensor``.
@@ -81,6 +92,55 @@ def test_split_dim_under_vmap_makes_an_uneven_head_split_whole(result):
     cell = result["split"]
     assert cell["placements"] == ["R", "R"]
     assert cell["shape"] == [4, 3, 15] and cell["y"] == 0.0
+
+
+@pytest.mark.parametrize("case", ["seq", "seq_heads", "seq_one_kv_head"])
+def test_attention_with_q_split_along_the_sequence(result, case):
+    cell = result[f"rows_{case}"]
+    assert cell["y"] < 1e-5
+    assert max(cell["grads"]) < 1e-5 and max(cell["vmap_grads"]) < 1e-5
+    # q's rows stay split: the output and every gradient in the inputs'
+    # placements (the keys' gradients reduce-scattered back to their rows)
+    q = ["S(1)", "R"] if case == "seq" else ["S(1)", "S(2)"]
+    keys = {"seq": ["S(1)", "R"], "seq_heads": ["S(1)", "S(2)"],
+            "seq_one_kv_head": ["S(1)", "P(sum)"]}[case]
+    assert cell["y_placements"] == q
+    assert cell["grad_placements"] == [q, keys, keys]
+
+
+@pytest.mark.parametrize("cell", [f"shift_{n}_{split}" for n in (1, 3)
+                                  for split in ("seq", "seq_width",
+                                                "batch_seq")])
+def test_shift_rows_on_a_split_sequence_is_bit_for_bit(result, cell):
+    got = result[cell]
+    assert got["y"] == 0.0 and got["grad"] == 0.0
+    assert got["placements"] == {"seq": ["S(1)", "R"],
+                                 "seq_width": ["S(1)", "S(2)"],
+                                 "batch_seq": ["S(0)", "S(1)"]}[
+        cell.split("_", 2)[2]]
+
+
+@pytest.mark.parametrize("cell", ["conv_seq", "conv_width", "mamba"])
+def test_mamba_on_a_split_sequence_or_width_is_bit_for_bit(result, cell):
+    got = result[cell]
+    assert got["y"] == 0.0
+    assert got["placements"] == (["R", "S(2)"] if cell == "conv_width"
+                                 else ["S(1)", "R"])
+
+
+def test_add_residual_reduces_a_row_parallel_ffn_output(result):
+    cell = result["residual_ffn"]
+    assert cell["h"] == ["S(0)", "P(sum)"] and cell["y"] == ["S(0)", "R"]
+    assert cell["diff"] < 1e-5      # the FFN's sum over "model" ranks
+
+
+def test_add_residual_keeps_the_streams_placements(result):
+    moe_cell = result["residual_moe"]
+    assert moe_cell["y"] == moe_cell["x"] and moe_cell["diff"] < 1e-5
+    # a stream pending over "model" beside a branch pending over "data":
+    # the stream is reduced, the branch reduce-scattered to its split
+    pending = result["residual_pending"]
+    assert pending["y"] == ["S(2)", "R"] and pending["diff"] == 0.0
 
 
 ONE_CARD = r"""
