@@ -20,6 +20,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.arms import fused
 from repro_torch.arms.base import (
     AggregationServices,
@@ -131,15 +132,20 @@ class DeCaPHArm(RoundArm):
         device = tree_device(params)
         stack, losses = [], []
         for s in fused.cohort_slots(len(active)):
-            g_sum, loss = self._clip_fn(params, {"x": bx[s], "y": by[s]},
-                                        masks[s])
-            stack.append(self._noised(g_sum, t, active[s], n_shares, device))
+            with obs.span("clip", cat="dp", device_time=True, slot=s,
+                          hospital=active[s], t=t):
+                g_sum, loss = self._clip_fn(params, {"x": bx[s], "y": by[s]},
+                                            masks[s])
+            with obs.span("dp.noise", cat="dp", device_time=True, slot=s):
+                stack.append(self._noised(g_sum, t, active[s], n_shares,
+                                          device))
             losses.append(loss)
-        stack = fused.gather_slots(stack, len(active))
-        losses = fused.gather_slots(losses, len(active))
-        if payloads:
-            return stack, None, torch.stack(losses)
-        return None, fused.seq_tree_sum(stack), torch.stack(losses)
+        with obs.span("fused.reduce", cat="train", device_time=True):
+            stack = fused.gather_slots(stack, len(active))
+            losses = fused.gather_slots(losses, len(active))
+            if payloads:
+                return stack, None, torch.stack(losses)
+            return None, fused.seq_tree_sum(stack), torch.stack(losses)
 
     def fused_round(self, params, active, t, rng, n_shares, payloads=None):
         cb = fused.stack_poisson(rng, self.participants, active, self.rate,

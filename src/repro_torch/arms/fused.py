@@ -127,6 +127,9 @@ def stack_poisson(rng: np.random.Generator,
             executor.mark(arr, axis=1 if steps is None else 2)
     obs.complete("host_rng.stack_poisson", t0, cat="rng",
                  cohort=len(active), pad=pad_to)
+    # rows drawn against rows the cohort step computes (pad rows included)
+    obs.counter("rows.real", sum(sizes))
+    obs.counter("rows.computed", len(active) * k_steps * pad_to)
     return CohortBatch(x=x, y=y, masks=masks, counts=counts, sizes=sizes)
 
 
@@ -135,8 +138,9 @@ def to_device(cb: CohortBatch, device) -> tuple[torch.Tensor, ...]:
     a mesh executor, this rank's part of each)."""
     executor = active_executor()
     local = (lambda a: a) if executor is None else executor.local_rows
-    return tuple(torch.from_numpy(local(a)).to(device)
-                 for a in (cb.x, cb.y, cb.masks))
+    with obs.span("fused.to_device", cat="train", device_time=True):
+        return tuple(torch.from_numpy(local(a)).to(device)
+                     for a in (cb.x, cb.y, cb.masks))
 
 
 # -- the mesh hooks of the cohort steps --------------------------------------
@@ -215,8 +219,9 @@ def _host_rows(payloads: Sequence[Tree], losses: torch.Tensor | None
                      else [losses[s].detach().float().reshape(1)]))
         for s, tree in enumerate(payloads)
     ])
-    # repro: allow[host-sync-hygiene] the round's one sync, on build_contributions' SecAgg path: the cohort's payloads and losses in one copy
-    host = rows.cpu().numpy()
+    with obs.span("fused.sync", cat="train"):
+        # repro: allow[host-sync-hygiene] the round's one sync, on build_contributions' SecAgg path: the cohort's payloads and losses in one copy
+        host = rows.cpu().numpy()
     views = []
     for row in host:
         leaves, off = [], 0
@@ -245,7 +250,8 @@ def build_contributions(active: Sequence[int], losses: torch.Tensor | None,
     else:
         slices = list(payloads) if mode == "device" else [None] * len(active)
         if losses is not None:
-            loss_vals = losses.detach().cpu().numpy()
+            with obs.span("fused.sync", cat="train"):
+                loss_vals = losses.detach().cpu().numpy()
     return {
         i: Contribution(
             payload=slices[s],

@@ -80,7 +80,8 @@ def _contributions(arm: RoundArm, params, active, t, rng, payloads
     when the config and the arm have one, else the per-participant loop in
     ascending index (the arm-contract rng order)."""
     if arm.cfg.fused_rounds and arm.fused_capable:
-        with obs.span("fused_round", cat="train", t=t, cohort=len(active)):
+        with obs.span("fused_round", cat="train", device_time=True, t=t,
+                      cohort=len(active)):
             return arm.fused_round(params, active, t, rng, len(active),
                                    payloads=payloads)
     contribs = {}
@@ -225,8 +226,8 @@ class LocalRunner:
         rng = np.random.default_rng(cfg.seed)
         logs: list[RoundLog] = []
         for t in range(arm.planned_rounds()):
-            with obs.span("round", cat="train", arm=arm.name,
-                          backend=self.backend, t=t):
+            with obs.span("round", cat="train", device_time=True,
+                          arm=arm.name, backend=self.backend, t=t):
                 active = [i for i in range(h) if arm.participates(i, t)]
                 if not active:
                     break  # nobody left who can contribute
@@ -246,7 +247,8 @@ class LocalRunner:
                                           frozenset(contribs))
                 # SecAgg (when on) runs inside aggregate via the services;
                 # the span covers the secure sums and the model step
-                with obs.span("aggregate", cat="train", t=t, secure=secure):
+                with obs.span("aggregate", cat="train", device_time=True,
+                              t=t, secure=secure):
                     outcome = arm.aggregate(params, contribs, services)
                 if outcome.stepped:
                     params = outcome.params
@@ -544,8 +546,8 @@ class SimRunner:
         # planned_rounds() pre-caps for an epsilon budget exactly like the
         # idealized backend
         for t in range(arm.planned_rounds()):
-            with obs.span("round", cat="train", arm=arm.name,
-                          backend=self.backend, t=t):
+            with obs.span("round", cat="train", device_time=True,
+                          arm=arm.name, backend=self.backend, t=t):
                 d, ok = self._advance_to_quorum(engine, minimum, require)
                 dropouts += d
                 if not ok:
@@ -653,8 +655,8 @@ class SimRunner:
                 # secure decode (when a session exists) happens inside
                 # aggregate via the services object, so this span covers
                 # reduce + recovery + decode
-                with obs.span("aggregate", cat="train", t=t,
-                              secure=session is not None):
+                with obs.span("aggregate", cat="train", device_time=True,
+                              t=t, secure=session is not None):
                     outcome = arm.aggregate(
                         params, dl_contribs,
                         _SimServices(session, uploads, topup))

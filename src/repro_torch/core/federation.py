@@ -29,7 +29,6 @@ from typing import Sequence
 import numpy as np
 import torch
 
-import repro_torch.obs as obs
 from repro_torch.arms import LocalRunner, RunReport, get
 from repro_torch.arms.base import (
     ArmConfig,
@@ -132,34 +131,30 @@ def run_pate(
 
     The teachers predict on the device of their parameters; the votes, the
     GNMax noise (``np.random.default_rng(cfg.seed)``, the reference's draw)
-    and the labels are host numpy.  The three stages run in the obs spans
-    ``pate.teachers``, ``pate.label`` and ``pate.student``.
+    and the labels are host numpy.
     """
     from repro_torch.core.accountant import DEFAULT_ORDERS, rdp_to_eps_delta
 
     # 1) local teachers (silo-only training via the registered arm)
-    with obs.span("pate.teachers", cat="train", hospitals=len(participants)):
-        teachers = _run_ideal("local", model, participants,
-                              cfg).per_node_params
+    teachers = _run_ideal("local", model, participants, cfg).per_node_params
 
     # 2) noisy-vote labelling of the public pool
-    with obs.span("pate.label", cat="train", queries=len(public_x)):
-        rng = np.random.default_rng(cfg.seed)
-        votes = np.zeros((len(public_x), n_classes), np.float64)
-        for t in teachers:
-            x = torch.as_tensor(public_x, device=tree_device(t))
-            if x.is_floating_point():   # jnp.asarray's float32 without x64
-                x = x.float()
-            with torch.no_grad():
-                pred = model.predict_fn(t, x).cpu().numpy()
-            if pred.ndim == 1:  # binary score -> two-column votes
-                cls = (pred > 0.5).astype(int)
-            else:
-                cls = pred.argmax(-1)
-            votes[np.arange(len(public_x)), cls] += 1.0
-        noisy = votes + rng.normal(0, gnmax_sigma, votes.shape)
-        labels = noisy.argmax(-1).astype(
-            np.float32 if n_classes == 2 else np.int32)
+    rng = np.random.default_rng(cfg.seed)
+    votes = np.zeros((len(public_x), n_classes), np.float64)
+    for t in teachers:
+        x = torch.as_tensor(public_x, device=tree_device(t))
+        if x.is_floating_point():   # jnp.asarray's float32 without x64
+            x = x.float()
+        with torch.no_grad():
+            pred = model.predict_fn(t, x).cpu().numpy()
+        if pred.ndim == 1:  # binary score -> two-column votes
+            cls = (pred > 0.5).astype(int)
+        else:
+            cls = pred.argmax(-1)
+        votes[np.arange(len(public_x)), cls] += 1.0
+    noisy = votes + rng.normal(0, gnmax_sigma, votes.shape)
+    labels = noisy.argmax(-1).astype(
+        np.float32 if n_classes == 2 else np.int32)
 
     # 3) privacy: Q Gaussian queries composed in RDP
     orders = np.asarray(DEFAULT_ORDERS)
@@ -167,9 +162,8 @@ def run_pate(
     eps, _ = rdp_to_eps_delta(rdp, orders, cfg.dp.delta)
 
     # 4) student trained on the noisy labels (plain SGD; labels are public)
-    with obs.span("pate.student", cat="train"):
-        student = Participant(public_x.astype(np.float32), labels)
-        res = _run_ideal("local", model, [student], cfg)
+    student = Participant(public_x.astype(np.float32), labels)
+    res = _run_ideal("local", model, [student], cfg)
     return RunResult(
         params=res.per_node_params[0], logs=[], epsilon=float(eps),
         rounds_completed=cfg.rounds, arm="pate", backend="ideal",

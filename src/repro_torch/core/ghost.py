@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.core.dp import clip_factor, ghost_norms_2d
 from repro_torch.kernels.ghost_norm.ops import ghost_norm
 from repro_torch.models import transformer as tf
@@ -373,23 +374,25 @@ def ghost_clipped_grad_sum(cfg, params: dict, batch: dict, *,
         return t[c * chunk:(c + 1) * chunk]
 
     norms, loss_sum, grads = [], None, None
-    for c in range(b // chunk):
-        n, l = _norms_of_chunk(cfg, frozen, {k: part(v, c)
-                                             for k, v in batch.items()},
-                               part(mask, c))
-        norms.append(n)
-        loss_sum = l if loss_sum is None else loss_sum + l
+    with obs.span("ghost.norms", cat="dp", device_time=True):
+        for c in range(b // chunk):
+            n, l = _norms_of_chunk(cfg, frozen, {k: part(v, c)
+                                                 for k, v in batch.items()},
+                                   part(mask, c))
+            norms.append(n)
+            loss_sum = l if loss_sum is None else loss_sum + l
     norms = torch.cat(norms)
     factors = clip_factor(norms, clip_norm) * mask
-    for c in range(b // chunk):
-        g = _grads_of_chunk(cfg, frozen, {k: part(v, c)
-                                          for k, v in batch.items()},
-                            part(factors, c))
-        if b == chunk:
-            grads = g
-        else:  # chunks accumulate in float32, as the reference's scan does
-            grads = tree_map(lambda a, x: a + x.float(), grads, g) \
-                if grads is not None else tree_map(lambda x: x.float(), g)
+    with obs.span("ghost.grads", cat="dp", device_time=True):
+        for c in range(b // chunk):
+            g = _grads_of_chunk(cfg, frozen, {k: part(v, c)
+                                              for k, v in batch.items()},
+                                part(factors, c))
+            if b == chunk:
+                grads = g
+            else:  # chunks accumulate in float32, as the reference's scan
+                grads = tree_map(lambda a, x: a + x.float(), grads, g) \
+                    if grads is not None else tree_map(lambda x: x.float(), g)
     n_real = torch.sum(mask)
     if reduce is not None:
         grads, loss_sum, n_real = reduce((grads, loss_sum, n_real))

@@ -53,19 +53,19 @@ def active_executor():
 def instrumented(fn: Callable) -> Callable:
     """``fn`` with every call counted (``jit_dispatches()``)."""
 
+    name = getattr(fn, "__name__", "<fn>")
+
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         global _jit_dispatch_count
         with _count_lock:
             _jit_dispatch_count += 1
-        t0 = obs.now()  # None when recording is off
         executor = active_executor()
-        out = (fn(*args, **kwargs) if executor is None
-               else executor.execute(fn, args, kwargs))
-        if t0 is not None:
-            obs.complete("jit_dispatch", t0, cat="jit",
-                         fn=getattr(fn, "__name__", "<fn>"))
-            obs.counter("jit_dispatches", 1)
+        # a span, not now() + complete(): the spans the call opens nest in it
+        with obs.span("jit_dispatch", cat="jit", fn=name):
+            out = (fn(*args, **kwargs) if executor is None
+                   else executor.execute(fn, args, kwargs))
+        obs.counter("jit_dispatches", 1)
         return out
 
     return wrapper

@@ -69,6 +69,7 @@ from __future__ import annotations
 
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.configs.base import LayerSpec
 from repro_torch.models.attention import (
     cross_apply,
@@ -360,21 +361,24 @@ def _layer_apply(cfg, spec, p: dict, x: torch.Tensor, positions,
     """One full-sequence layer: the mixer, cross attention over
     ``enc_out`` where the spec has it, the FFN; returns x and the MoE
     aux loss (None for a dense FFN or without ``with_aux``)."""
-    h = _norm(cfg, p, "norm1", x)
-    if spec.mixer == "attn":
-        h = gqa_apply(p, h, positions, cfg, window=cfg.sliding_window,
-                      mrope_positions=mrope_positions)
-    elif spec.mixer == "mla":
-        h = mla_apply(p, h, positions, cfg, window=cfg.sliding_window)
-    elif spec.mixer == "mamba":
-        h = mamba_apply(p, h, cfg)
-    else:
-        h = rwkv6_apply(p, h, cfg)
-    x = x + h
+    with obs.span("model.mixer", cat="model", mixer=spec.mixer):
+        h = _norm(cfg, p, "norm1", x)
+        if spec.mixer == "attn":
+            h = gqa_apply(p, h, positions, cfg, window=cfg.sliding_window,
+                          mrope_positions=mrope_positions)
+        elif spec.mixer == "mla":
+            h = mla_apply(p, h, positions, cfg, window=cfg.sliding_window)
+        elif spec.mixer == "mamba":
+            h = mamba_apply(p, h, cfg)
+        else:
+            h = rwkv6_apply(p, h, cfg)
+        x = x + h
     if spec.cross_attn and enc_out is not None:
         x = x + cross_apply(p, _norm(cfg, p, "norm_cross", x), enc_out, cfg)
-    h, aux = _ffn(cfg, spec, p, _norm(cfg, p, "norm2", x), with_aux=with_aux)
-    return add_residual(x, h), aux
+    with obs.span("model.ffn", cat="model", ffn=spec.ffn):
+        h, aux = _ffn(cfg, spec, p, _norm(cfg, p, "norm2", x),
+                      with_aux=with_aux)
+        return add_residual(x, h), aux
 
 
 def _encode(cfg, params: dict, frames: torch.Tensor) -> torch.Tensor:
@@ -399,17 +403,19 @@ def _hidden(cfg, params: dict, batch: dict) -> tuple[torch.Tensor,
     loss."""
     enc_out = (_encode(cfg, params, batch["frames"])
                if cfg.is_encoder_decoder else None)
-    tokens = batch["tokens"].long()
-    x = take_rows(embed_of(cfg, params), tokens).to(cfg.cdtype)
-    x = prefix_vision(cfg, x, batch)
-    x = shard(x, "batch", "seq", None)
+    with obs.span("model.embed", cat="model"):
+        tokens = batch["tokens"].long()
+        x = take_rows(embed_of(cfg, params), tokens).to(cfg.cdtype)
+        x = prefix_vision(cfg, x, batch)
+        x = shard(x, "batch", "seq", None)
     b, s, _ = x.shape
     positions, mrope_positions = positions_of(cfg, batch, b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for spec, p in layers_of(cfg, params):
-        x, a = _layer_apply(cfg, spec, p, x, positions, mrope_positions,
-                            enc_out)
-        x = shard(x, "batch", "seq", None)
+    for layer, (spec, p) in enumerate(layers_of(cfg, params)):
+        with obs.span("model.block", cat="model", layer=layer):
+            x, a = _layer_apply(cfg, spec, p, x, positions, mrope_positions,
+                                enc_out)
+            x = shard(x, "batch", "seq", None)
         if a is not None:
             aux = aux + a
     return _norm(cfg, params, "final_norm", x), aux
@@ -466,13 +472,17 @@ def per_example_ce(logits: torch.Tensor, labels: torch.Tensor
 
 
 def loss_fn(cfg, params: dict, batch: dict) -> torch.Tensor:
-    x, aux = _hidden(cfg, params, batch)
-    logits = matmul(x, head_of(cfg, params).to(cfg.cdtype))
-    loss = (_ce(text_logits(cfg, logits, batch), batch["labels"])
-            + cfg.router_aux_coef * aux)
-    if cfg.mtp_depth:
-        loss = loss + cfg.mtp_loss_weight * _mtp_loss(cfg, params, batch, x)
-    return loss
+    with obs.span("model.loss_fn", cat="model", device_time=True):
+        x, aux = _hidden(cfg, params, batch)
+        with obs.span("model.head", cat="model", device_time=True):
+            logits = matmul(x, head_of(cfg, params).to(cfg.cdtype))
+        with obs.span("model.loss", cat="model", device_time=True):
+            loss = (_ce(text_logits(cfg, logits, batch), batch["labels"])
+                    + cfg.router_aux_coef * aux)
+        if cfg.mtp_depth:
+            loss = loss + cfg.mtp_loss_weight * _mtp_loss(cfg, params, batch,
+                                                          x)
+        return loss
 
 
 def _mtp_loss(cfg, params: dict, batch: dict, hidden: torch.Tensor

@@ -4,7 +4,9 @@ The port's own copy of ``repro.obs`` (the ``jax.profiler`` bridge is left
 out).  Recording is OFF by default, and a disabled recorder is a
 structural no-op: ``span()`` returns a shared ``nullcontext`` and
 ``counter()`` / ``ledger_round()`` return at once, so nothing on the hot
-path syncs the device or adds work.
+path syncs the device or adds work.  A recorder given a device clock
+(``obs.device.CudaClock``) also times the spans opened with
+``device_time=True`` on the device, without a sync until export.
 
     import repro_torch.obs as obs
 
@@ -93,10 +95,14 @@ def recording(rec: Recorder | None = None) -> Iterator[Recorder]:
 # -- recording API (no-ops when disabled) --------------------------------------
 
 
-def span(name: str, *, cat: str = "obs", **args: Any):
-    """Nestable timed region; a shared no-op context when recording is off."""
+def span(name: str, *, cat: str = "obs", device_time: bool = False,
+         **args: Any):
+    """Nestable timed region; a shared no-op context when recording is off.
+    ``device_time``: also timed on the device when the recorder has a
+    device clock (``Recorder``)."""
     rec = _RECORDER
-    return rec.span(name, cat=cat, **args) if rec is not None else _NULL
+    return (rec.span(name, cat=cat, device_time=device_time, **args)
+            if rec is not None else _NULL)
 
 
 def now() -> float | None:
@@ -154,12 +160,14 @@ def export(out_dir: str | os.PathLike,
     """Write events.jsonl + ledger.jsonl + trace.json into ``out_dir``.
 
     Uses the active recorder when ``rec`` is not given; raises if neither
-    exists (exporting nothing silently would hide a lost trace).
+    exists (exporting nothing silently would hide a lost trace).  Spans
+    timed on the device are resolved first (a wait for the device).
     """
     rec = rec if rec is not None else _RECORDER
     if rec is None:
         raise RuntimeError("obs.export: recording is not enabled and no "
                            "recorder was passed")
+    rec.resolve_device_times()
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     paths = {"events": out / EVENTS_FILE, "ledger": out / LEDGER_FILE,

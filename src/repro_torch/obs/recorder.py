@@ -1,29 +1,42 @@
-"""The structured tracing core: spans, counters, gauges, one Recorder.
+"""The structured tracing core: spans, counters, one Recorder.
 
 The port's own copy of ``repro.obs.recorder`` (stdlib only), without the
 ``jax.profiler`` bridge.  The privacy ledger rides the recorder, as in the
 reference, so one ``enable()`` turns on spans and the ledger together.
 
-A ``Recorder`` is a process-wide, **thread-safe** event buffer.  Three
-typed event kinds, all host-side timestamps only (``time.perf_counter``
+A ``Recorder`` is a process-wide, **thread-safe** event buffer.  It records
+two typed event kinds, with host-side timestamps (``time.perf_counter``
 relative to the recorder's epoch — recording never forces a device sync):
 
   * **span**  — a named duration with thread id and nesting ``depth``
     (per-thread stack), recorded as ONE complete event at exit;
   * **counter** — a monotonically accumulated metric; each increment
-    records the post-increment ``total`` so the export is a time series;
-  * **gauge** — a sampled instantaneous value.
+    records the post-increment ``total`` so the export is a time series.
+
+The reference also records **gauges** (a sampled instantaneous value);
+nothing in the port samples one, but ``validate_events`` and the converter
+read them in the reference's exports.
 
 Spans come in two spellings with identical output: the ``span()`` context
 manager, and ``now()`` + ``complete()`` for loop bodies.
+
+Device time: a recorder given a ``device_clock`` (``obs.device.CudaClock``,
+or any object with ``epoch``, ``mark()``, ``seconds(a, b)`` and
+``synchronize()``) marks the device's stream at entry and exit of every
+span opened with ``device_time=True``.  Nothing waits for the marks while
+the program runs; ``resolve_device_times()``, called once the work is done
+(``obs.export`` calls it), waits for the device and gives each such span
+``dev_ts`` and ``dev_dur``: float seconds since the clock's epoch on the
+device's own clock.  Without a device clock ``device_time`` does nothing.
 
 The event schema (the JSONL export, one object per line — the reference's,
 DESIGN.md §11):
 
     {"type": "meta", "schema": 1, "pid": ..., "epoch": ...}       # line 1
     {"type": "span", "name", "cat", "ts", "dur", "tid", "depth", "args"}
+                                     # + "dev_ts", "dev_dur" when resolved
     {"type": "counter", "name", "ts", "inc", "total", "tid", "args"}
-    {"type": "gauge", "name", "ts", "value", "tid", "args"}
+    {"type": "gauge", "name", "ts", "value", "tid", "args"}  # reference's
 
 ``ts``/``dur`` are float seconds since the recorder epoch.  Events append
 under one lock in completion order, so a reader never sees a half-written
@@ -45,15 +58,23 @@ EVENT_TYPES = ("meta", "span", "counter", "gauge")
 
 
 class Recorder:
-    """Thread-safe, process-wide buffer of spans / counters / gauges."""
+    """Thread-safe, process-wide buffer of spans and counters.
 
-    def __init__(self, clock: Callable[[], float] = time.perf_counter) -> None:
+    ``device_clock`` (see the module docstring) times the spans opened with
+    ``device_time=True`` on the device too; it may also be set on the
+    attribute before those spans open."""
+
+    def __init__(self, clock: Callable[[], float] = time.perf_counter,
+                 device_clock: Any = None) -> None:
         self._lock = threading.Lock()
         self._clock = clock
         self._epoch = clock()
         self._events: list[dict] = []
         self._counters: dict[str, float] = {}
         self._tls = threading.local()     # per-thread span stack (depth)
+        self.device_clock = device_clock
+        # (span event, entry mark, exit mark) awaiting resolve_device_times
+        self._device_marks: list[tuple[dict, Any, Any]] = []
         from repro_torch.obs.ledger import PrivacyLedger
 
         self.ledger = PrivacyLedger()
@@ -68,23 +89,49 @@ class Recorder:
         return getattr(self._tls, "depth", 0)
 
     @contextlib.contextmanager
-    def span(self, name: str, *, cat: str = "obs",
+    def span(self, name: str, *, cat: str = "obs", device_time: bool = False,
              **args: Any) -> Iterator[None]:
-        """Nestable timed region; one complete event is recorded at exit."""
+        """Nestable timed region; one complete event is recorded at exit.
+        With ``device_time`` and a device clock, the device's stream is
+        marked at entry and exit too (never waited for here)."""
+        clock = self.device_clock if device_time else None
         depth = self._depth()
         self._tls.depth = depth + 1
+        d0 = clock.mark() if clock is not None else None
         t0 = self.now()
         try:
             yield
         finally:
             t1 = self.now()
+            d1 = clock.mark() if clock is not None else None
             self._tls.depth = depth
-            self._emit({
+            event = {
                 "type": "span", "name": name, "cat": cat,
                 "ts": t0, "dur": t1 - t0,
                 "tid": threading.get_ident(), "depth": depth,
                 "args": args,
-            })
+            }
+            with self._lock:
+                self._events.append(event)
+                if clock is not None:
+                    self._device_marks.append((event, d0, d1))
+
+    def resolve_device_times(self) -> int:
+        """Wait for the device, then give every device-timed span recorded
+        so far its ``dev_ts`` and ``dev_dur`` (seconds since the device
+        clock's epoch); returns how many spans were resolved."""
+        with self._lock:
+            marks, self._device_marks = self._device_marks, []
+        if not marks:
+            return 0
+        clock = self.device_clock
+        clock.synchronize()
+        times = [(clock.seconds(clock.epoch, d0), clock.seconds(d0, d1))
+                 for _, d0, d1 in marks]
+        with self._lock:
+            for (event, _, _), (ts, dur) in zip(marks, times):
+                event["dev_ts"], event["dev_dur"] = ts, dur
+        return len(marks)
 
     def complete(self, name: str, t_start: float, *, cat: str = "obs",
                  **args: Any) -> None:
@@ -98,7 +145,7 @@ class Recorder:
             "args": args,
         })
 
-    # -- counters / gauges ----------------------------------------------------
+    # -- counters -------------------------------------------------------------
 
     def counter(self, name: str, inc: float = 1.0, **args: Any) -> float:
         """Accumulate ``inc`` onto counter ``name``; returns the new total."""
@@ -112,12 +159,6 @@ class Recorder:
                 "tid": threading.get_ident(), "args": args,
             })
         return total
-
-    def gauge(self, name: str, value: float, **args: Any) -> None:
-        self._emit({
-            "type": "gauge", "name": name, "ts": self.now(),
-            "value": value, "tid": threading.get_ident(), "args": args,
-        })
 
     # -- reads ----------------------------------------------------------------
 
