@@ -319,11 +319,11 @@ script exits non-zero, printing no result:
      no SecAgg; 60 rounds, cut from 400): ``run_decaph`` (ε the
      accountant's) and ``run_pate`` at GNMax sigma 2 and 8 (ε
      ``rdp_to_eps_delta`` of |pool| x α / (2 sigma²) bit for bit), each
-     run's held-out AUROC, ε and wall, PATE's split into its teachers,
-     labelling and student spans.  The deprecated ``run_decaph`` on phase
-     6's SmolLM-360M (untied head, full width, 4 hospitals x 64 x 256
-     tokens, ghost clipping, sigma 1.0, 2 rounds): 225 ``ghost_norm``
-     launches per participant and round (added to the kernels line), bit
+     run's held-out AUROC, ε and wall.  The deprecated ``run_decaph`` on
+     phase 6's SmolLM-360M (untied head, full width, 4 hospitals x 64 x
+     256 tokens, ghost clipping, sigma 1.0, 2 rounds): 225 ``ghost_norm``
+     launches per participant and round that drew rows (added to the
+     kernels line), bit
      for bit ``arms.run("decaph", ...)`` with ``fused_rounds=False`` and
      with the fused default.  The deprecated ``simulate_decaph`` on phase
      16's pancreas with dropout-robust SecAgg and phase 16's dropout trace,
@@ -576,7 +576,8 @@ GHOST_TRAIN_SHAPES = {(16, 256, 960, 960): 64, (16, 256, 960, 320): 64,
 # 19's q = 1 run): the Poisson pad of B=16 rows of S=64 tokens through d 256
 # (q and o 256->256, k and v 256->128, up and gate 256->512, down 512->256)
 # and the untied head (256->1024); phase 18 also holds every shape it
-# records on that path against this list
+# records on that path against this list, where a slot's draw of up to 16
+# rows sets B
 GHOST_LM_SHAPES = [(16, 64, 256, 256), (16, 64, 256, 128), (16, 64, 256, 512),
                    (16, 64, 512, 256), (16, 64, 256, 1024)]
 GHOST_ROW_SHAPE = (16, 256, 960, 2560)   # the kernels line's ghost_norm times
@@ -958,6 +959,13 @@ def recording_ghost_inputs():
         yield seen
 
 
+def clipped_slots(rec, slots: int) -> int:
+    """Of ``slots`` DeCaPH participant-rounds in recording ``rec``, those
+    whose ghost passes ran: a slot that drew no rows is not clipped
+    (counter ``clip.empty_slots``) and launches no ``ghost_norm``."""
+    return slots - int(rec.counter_totals().get("clip.empty_slots", 0))
+
+
 def path_ghost_vs_plain(seen: dict, what: str) -> float:
     """``_ghost_check`` on the inputs ``recording_ghost_inputs`` kept, after
     the path's launches were read; returns the largest |kernel - plain|."""
@@ -1187,8 +1195,9 @@ def train_main_path(dev, smi, ckpt_dir: str) -> dict:
     reset_jit_dispatches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    report = arms.run("decaph", model, silos, cfg, backend="ideal",
-                      on_round=on_round)
+    with obs.recording() as rec:
+        report = arms.run("decaph", model, silos, cfg, backend="ideal",
+                          on_round=on_round)
     launches = ghost_ops.launches()
     calls = jit_dispatches()
 
@@ -1218,12 +1227,13 @@ def train_main_path(dev, smi, ckpt_dir: str) -> dict:
         raise AssertionError(f"{calls} program calls for "
                              f"{TRAIN['rounds']} fused rounds")
     per_participant = 7 * mcfg.n_layers + 1
-    expected = per_participant * TRAIN["hospitals"] * TRAIN["rounds"]
+    clipped = clipped_slots(rec, TRAIN["hospitals"] * TRAIN["rounds"])
+    expected = per_participant * clipped
     if launches != expected:
         raise AssertionError(f"ghost_norm launched {launches} times, "
-                             f"expected {per_participant} x "
-                             f"{TRAIN['hospitals']} participants x "
-                             f"{TRAIN['rounds']} rounds = {expected}")
+                             f"expected {per_participant} x {clipped} "
+                             f"participant-rounds that drew rows = "
+                             f"{expected}")
     round_s = [b - a for a, b in zip([t0] + resumes[:-1], marks)]
     if publisher.published != list(range(TRAIN["rounds"])):
         raise AssertionError(f"published rounds {publisher.published}")
@@ -3008,7 +3018,7 @@ def scenario_presets(dev, smi) -> tuple[int, float]:
             raise AssertionError(f"{name}: {row}")
         if spec.task == "lm":
             expected = (_ghost_per_participant(spec.model_size)
-                        * spec.hospitals * spec.rounds)
+                        * clipped_slots(rec, spec.hospitals * spec.rounds))
             if calls != spec.rounds or launches != expected:
                 raise AssertionError(
                     f"{name}: {calls} program calls, ghost_norm launched "
@@ -3020,7 +3030,9 @@ def scenario_presets(dev, smi) -> tuple[int, float]:
                 raise AssertionError(f"{name}: the pooled metric's forward "
                                      f"did not run on the card: {seen[-3:]}")
             shapes = {key[:4] for key in inputs}
-            if not shapes <= set(GHOST_LM_SHAPES):
+            if not {sh[1:] for sh in shapes} <= {
+                    sh[1:] for sh in GHOST_LM_SHAPES} or any(
+                    not 1 <= sh[0] <= GHOST_LM_SHAPES[0][0] for sh in shapes):
                 raise AssertionError(
                     f"{name}: ghost_norm shapes {sorted(shapes)} outside "
                     f"phase 3's GHOST_LM_SHAPES")
@@ -3046,21 +3058,22 @@ def scenario_sweep(dev, smi, tmp: Path) -> float:
     gemini-small``.  Returns the largest |kernel - plain|."""
     specs = scenario_lib.get_sweep("capacity-lm").specs()
     cache = scenario_lib.ResultCache(tmp / "cache")
-    launches, inputs = {}, {}
+    launches, inputs, clipped = {}, {}, {}
 
     def counting(spec):
         ghost_ops.reset_launches()
-        with recording_ghost_inputs() as seen:
+        with obs.recording() as rec, recording_ghost_inputs() as seen:
             row = scenario_lib.run_spec(spec, device=str(dev))
             torch.cuda.synchronize()
         launches[spec.name] = ghost_ops.launches()
         inputs[spec.name] = seen
+        clipped[spec.name] = clipped_slots(rec, spec.hospitals * spec.rounds)
         return row
 
     first = scenario_lib.run_sweep(specs, cache, runner=counting)
     for spec, row in zip(specs, first.results):
-        expected = (_ghost_per_participant(spec.model_size) * spec.hospitals
-                    * spec.rounds if spec.clipping == "ghost" else 0)
+        expected = (_ghost_per_participant(spec.model_size)
+                    * clipped[spec.name] if spec.clipping == "ghost" else 0)
         say(f"sweep capacity-lm {spec.model_size} {spec.clipping}, on {smi}:"
             f" {row['model_params']:,} parameters, ε {row['epsilon']:.6f}, "
             f"accuracy {row['accuracy']:.4f}, mean loss "
@@ -3267,7 +3280,7 @@ def population_vs_ideal(dev, smi) -> float:
     for backend, kw in (("ideal", {}),
                         ("population", {"topo": Topology.full(len(silos))})):
         ghost_ops.reset_launches()
-        with recording_ghost_inputs() as inputs:
+        with obs.recording() as rec, recording_ghost_inputs() as inputs:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             report = arms.run("decaph", model, silos, cfg, backend=backend,
@@ -3280,7 +3293,8 @@ def population_vs_ideal(dev, smi) -> float:
     same = ideal.rounds_completed == popl.rounds_completed and all(
         torch.equal(a, b) for a, b in zip(tree_leaves(ideal.params),
                                           tree_leaves(popl.params)))
-    expected = _ghost_per_participant("full") * len(silos) * spec.rounds
+    expected = _ghost_per_participant("full") * clipped_slots(
+        rec, len(silos) * spec.rounds)
     say(f"population q=1: lm-full's model and silos, decaph sigma 0, "
         f"{spec.rounds} rounds, on {smi}: parameters bit-identical to "
         f"ideal's: {same}; ghost_norm launches {n_pop} (ideal {n_ideal}, "
@@ -3699,7 +3713,7 @@ def train_olmo(dev, smi) -> tuple[int, float]:
     torch.cuda.reset_peak_memory_stats()
     ghost_ops.reset_launches()
     reset_jit_dispatches()
-    with recording_ghost_inputs() as seen:
+    with obs.recording() as rec, recording_ghost_inputs() as seen:
         t0 = time.perf_counter()
         report = arms.run("decaph", model, silos, cfg, backend="ideal",
                           on_round=on_round)
@@ -3709,11 +3723,11 @@ def train_olmo(dev, smi) -> tuple[int, float]:
     # weight of a layer (its "w..." leaves), per layer, and one for the head
     dense = sum(1 for name in report.params["layers"] if name.startswith("w"))
     per_participant = dense * mcfg.n_layers + 1
-    expected = per_participant * t["hospitals"] * t["rounds"]
+    clipped = clipped_slots(rec, t["hospitals"] * t["rounds"])
+    expected = per_participant * clipped
     if launches != expected:
         raise AssertionError(f"ghost_norm launched {launches} times, expected "
-                             f"{per_participant} x {t['hospitals']} x "
-                             f"{t['rounds']} = {expected}")
+                             f"{per_participant} x {clipped} = {expected}")
     if report.rounds_completed != t["rounds"] or calls != t["rounds"]:
         raise AssertionError(f"{report.rounds_completed} rounds in {calls} "
                              "program calls")
@@ -4820,14 +4834,12 @@ def pate_vs_decaph(dev, smi) -> None:
     orders = np.asarray(DEFAULT_ORDERS)
     pates = []
     for gsigma in case["gnmax_sigmas"]:
-        with obs.recording() as rec:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = federation.run_pate(model, train, cfg, public_x=pub_x,
-                                      n_classes=2, gnmax_sigma=gsigma)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            spans = rec.span_totals()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = federation.run_pate(model, train, cfg, public_x=pub_x,
+                                  n_classes=2, gnmax_sigma=gsigma)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         eps, _ = rdp_to_eps_delta(n_pub * orders / (2.0 * gsigma**2), orders,
                                   cfg.dp.delta)
         if res.epsilon != eps or (res.arm, res.backend) != ("pate", "ideal") \
@@ -4838,13 +4850,10 @@ def pate_vs_decaph(dev, smi) -> None:
                                  f"{eps}, or {res.arm}/{res.backend}/"
                                  f"{res.rounds_completed}, or non-finite")
         auc = _auroc(model, res.params, tx_eval, ty_eval)
-        ms = {k: 1e3 * spans[f"pate.{k}"][1]
-              for k in ("teachers", "label", "student")}
         pates.append((auc, res.epsilon))
         say(f"pate vs decaph: pate GNMax sigma {gsigma:g}: AUROC {auc:.4f}, ε "
             f"{res.epsilon:.4f} (= rdp_to_eps_delta of {n_pub} x α / "
-            f"(2 x {gsigma:g}^2), bit for bit), wall {wall:.2f} s: "
-            + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items()))
+            f"(2 x {gsigma:g}^2), bit for bit), wall {wall:.2f} s")
     supported = all(auc_dc > a or e > dc.epsilon for a, e in pates)
     say(f"pate vs decaph: the paper's argument (DeCaPH's AUROC above PATE's "
         f"or PATE's ε above DeCaPH's, at each sigma): {supported} (printed "
@@ -4860,7 +4869,6 @@ def shim_decaph_lm(dev, smi) -> int:
     silos = _silos(mcfg)
     cfg = _train_cfg(SHIM_LM["rounds"], SHIM_LM["sigma"])
     per_participant = 7 * mcfg.n_layers + 1
-    expected = per_participant * SHIM_LM["hospitals"] * SHIM_LM["rounds"]
     runs = [
         ("run_decaph", lambda: _quiet(federation.run_decaph, model, silos,
                                       cfg)),
@@ -4875,15 +4883,15 @@ def shim_decaph_lm(dev, smi) -> int:
         reset_jit_dispatches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rep = fn()
+        with obs.recording() as rec:
+            rep = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n, calls = ghost_ops.launches(), jit_dispatches()
-        if n != expected:
+        clipped = clipped_slots(rec, SHIM_LM["hospitals"] * SHIM_LM["rounds"])
+        if n != per_participant * clipped:
             raise AssertionError(f"{what}: ghost_norm launched {n} times, "
-                                 f"expected {per_participant} x "
-                                 f"{SHIM_LM['hospitals']} x "
-                                 f"{SHIM_LM['rounds']} = {expected}")
+                                 f"expected {per_participant} x {clipped}")
         reports.append(rep)
         total += n
         parts.append(f"{what}: {n} launches, {calls} program calls, wall "

@@ -32,6 +32,7 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.core import dp as dp_lib
 from repro_torch.tree import Tree, tree_leaves, tree_map
 
@@ -304,11 +305,18 @@ class RoundArm(Arm):
         """Model-aware clipped-grad-sum seam (DESIGN.md §12): the ghost path
         for models declaring the capability, the faithful
         ``dp.per_example_clipped_grad_sum`` otherwise — resolved once at arm
-        construction so the choice is visible in ``clipping_path``."""
+        construction so the choice is visible in ``clipping_path``.  Each
+        call counts the rows it is handed (counter ``rows.computed``)."""
         from repro_torch.arms import clipping as clipping_lib
 
         self.clipping_path = clipping_lib.resolve(self.model, self.cfg)
-        return clipping_lib.clipped_grad_sum_fn(self.model, self.cfg, pad)
+        fn = clipping_lib.clipped_grad_sum_fn(self.model, self.cfg, pad)
+
+        def counted(params, batch, mask):
+            obs.counter("rows.computed", mask.shape[0])
+            return fn(params, batch, mask)
+
+        return counted
 
     def planned_rounds(self) -> int:
         """Round cap (e.g. pre-computed epsilon budget)."""

@@ -10,7 +10,9 @@ dataset.
 The reference ``vmap``s one participant's step over the cohort; the port
 loops over the cohort inside one ``instrumented`` cohort step (the
 clipped-sum kernels cannot be vmapped), keeping one program call per
-fused round.
+fused round.  The loop lets each slot's clipped sum run on the rows its
+Poisson draw holds rather than on the cohort's padded shape: pad rows
+add exactly zero to every sum, so the numbers are the padded step's.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from repro_torch.arms.registry import register
 from repro_torch.core import dp as dp_lib
 from repro_torch.core.accountant import RDPAccountant, steps_for_epsilon
 from repro_torch.core.leader import leader_schedule
-from repro_torch.tree import tree_device
+from repro_torch.tree import tree_device, tree_map
 
 # The reference's noise salt, 17: it seeds participant i's round-t noise
 # generator from (seed, 17 + t, i) as the reference folds (17 + t, i) into
@@ -124,18 +126,60 @@ class DeCaPHArm(RoundArm):
             noise_multiplier=self.cfg.dp.noise_multiplier, n_shares=n_shares,
         )
 
-    def _cohort_step(self, params, bx, by, masks, t, active, n_shares,
-                     payloads=None):
+    def _chunk(self, pad_to: int) -> int | None:
+        """The ghost chunk a slot of ``pad_to`` rows runs in; None where it
+        runs in one piece, or clips per example."""
+        chunk = self.model.ghost.chunk_size \
+            if self.clipping_path == "ghost" else None
+        return chunk if chunk and chunk < pad_to and pad_to % chunk == 0 \
+            else None
+
+    def _slot_rows(self, k: int, pad_to: int) -> int:
+        """How many of a slot's ``pad_to`` rows (real rows first) its clip
+        function is handed for a draw of ``k``: all of them where a mesh
+        executor needs them (``fused.padded_slots``); else the draw's own,
+        rounded up to whole ghost chunks where a chunk divides the pad, so
+        the chunk still bounds the passes' memory (a batch no chunk
+        divides runs in one piece)."""
+        if fused.padded_slots():
+            return pad_to
+        chunk = self._chunk(pad_to)
+        return k if chunk is None else -(-k // chunk) * chunk
+
+    def _nothing_clipped(self, params, pad_to: int):
+        """A slot with no rows to clip: the zero sum in the dtypes its
+        padded rows would have given (one ghost piece: each parameter's
+        own; chunks and per-example clipping accumulate in float32), and
+        the loss of an empty draw, 0."""
+        one_piece = (self.clipping_path == "ghost"
+                     and self._chunk(pad_to) is None)
+        dtype = None if one_piece else torch.float32
+        zero = tree_map(lambda p: torch.zeros_like(p, dtype=dtype), params)
+        return zero, torch.zeros((), dtype=torch.float32,
+                                 device=tree_device(params))
+
+    def _cohort_step(self, params, bx, by, masks, counts, t, active,
+                     n_shares, payloads=None):
         """Every participant's noised clipped sum (with ``payloads``) or
         else their cohort total in ascending-slot order, and every
-        participant's loss; the one not returned is None."""
+        participant's loss; the one not returned is None.  ``counts`` are
+        the slots' real rows (host ints), which bound what each slot
+        clips; a slot that drew none clips nothing and still draws its
+        noise share."""
         device = tree_device(params)
+        pad_to = masks.shape[1]
         stack, losses = [], []
         for s in fused.cohort_slots(len(active)):
             with obs.span("clip", cat="dp", device_time=True, slot=s,
                           hospital=active[s], t=t):
-                g_sum, loss = self._clip_fn(params, {"x": bx[s], "y": by[s]},
-                                            masks[s])
+                rows = self._slot_rows(counts[s], pad_to)
+                if rows:
+                    g_sum, loss = self._clip_fn(
+                        params, {"x": bx[s][:rows], "y": by[s][:rows]},
+                        masks[s][:rows])
+                else:
+                    obs.counter("clip.empty_slots")
+                    g_sum, loss = self._nothing_clipped(params, pad_to)
             with obs.span("dp.noise", cat="dp", device_time=True, slot=s):
                 stack.append(self._noised(g_sum, t, active[s], n_shares,
                                           device))
@@ -151,8 +195,8 @@ class DeCaPHArm(RoundArm):
         cb = fused.stack_poisson(rng, self.participants, active, self.rate,
                                  self.pad)
         stack, reduced, losses = self._fused_step(
-            params, *fused.to_device(cb, tree_device(params)), t,
-            list(active), n_shares, payloads)
+            params, *fused.to_device(cb, tree_device(params)),
+            cb.counts.tolist(), t, list(active), n_shares, payloads)
         return fused.build_contributions(active, losses, cb.sizes, stack,
                                          payloads), reduced
 

@@ -23,10 +23,11 @@ The executor seam (the reference's ``execution_context`` /
 executor (the ``shard`` backend) ``stack_poisson`` rounds the cohort pad
 up with ``executor.round_pad`` and ``mark``s the stacked arrays,
 ``to_device`` keeps this rank's part of each, and the cohort steps run
-their slots through three hooks: ``cohort_slots`` (the slots this rank
-computes), ``gather_slots`` (every slot's result, in slot order) and
+their slots through four hooks: ``cohort_slots`` (the slots this rank
+computes), ``gather_slots`` (every slot's result, in slot order),
 ``example_sum`` (a sum over a slot's examples, summed over the ranks that
-split them).  Without an executor each hook is the identity, bit for bit.
+split them) and ``padded_slots`` (whether the slots must keep their
+pad).  Without an executor each hook is the identity, bit for bit.
 """
 
 from __future__ import annotations
@@ -127,9 +128,9 @@ def stack_poisson(rng: np.random.Generator,
             executor.mark(arr, axis=1 if steps is None else 2)
     obs.complete("host_rng.stack_poisson", t0, cat="rng",
                  cohort=len(active), pad=pad_to)
-    # rows drawn against rows the cohort step computes (pad rows included)
+    # rows drawn; the rows computed are counted where they enter the clip
+    # function (``RoundArm.clipped_grad_sum_fn``)
     obs.counter("rows.real", sum(sizes))
-    obs.counter("rows.computed", len(active) * k_steps * pad_to)
     return CohortBatch(x=x, y=y, masks=masks, counts=counts, sizes=sizes)
 
 
@@ -165,6 +166,14 @@ def example_sum(tree):
     ranks that split the examples, made whole where it is a DTensor."""
     executor = active_executor()
     return tree if executor is None else executor.example_sum(tree)
+
+
+def padded_slots() -> bool:
+    """Whether a mesh executor needs every slot's padded rows
+    (``MeshExecutor.pads_slots``); else each slot this rank computes is
+    whole on it, real rows first, and may run on those alone."""
+    executor = active_executor()
+    return executor is not None and executor.pads_slots()
 
 
 # -- the cohort reductions on the device -------------------------------------

@@ -268,10 +268,11 @@ class MeshExecutor:
     ``stack_poisson`` hands it the cohort's stacked arrays (``mark``); the
     arm's cohort step then runs through ``execute`` with model-parallel
     params as DTensors, and through the hooks ``slots`` /
-    ``gather_slots`` (participant split) and ``example_sum`` (example
-    split).  Counters as the reference's: ``sharded_puts`` (placements
-    that split an axis), ``participant_shards`` (arrays split over
-    ("pod", "data")), ``param_shards`` (param leaves over ("model",)).
+    ``gather_slots`` (participant split), ``example_sum`` (example split)
+    and ``pads_slots``.  Counters as the reference's:
+    ``sharded_puts`` (placements that split an axis),
+    ``participant_shards`` (arrays split over ("pod", "data")),
+    ``param_shards`` (param leaves over ("model",)).
     """
 
     def __init__(self, mesh) -> None:
@@ -364,6 +365,14 @@ class MeshExecutor:
                 out[r * k + j] = _rebuild(tree, [
                     g[r].reshape(t.shape) for g, t in zip(got, leaves)])
         return out
+
+    def pads_slots(self) -> bool:
+        """Whether the cohort steps hand the clip function each slot's
+        padded rows: the example split gives each rank a block of them,
+        and on the model axis DTensor's sharding propagation depends on
+        the batch's size (torch 2.11 could not split the heads of a
+        one-row slot's activations)."""
+        return self._split == "example" or self.model is not None
 
     def example_sum(self, tree):
         """A slot's per-example sums made whole and, under the example

@@ -19,6 +19,7 @@ training round meets them) — the kernel (bf16 products, float32 ones as
 over the same inputs, in other orders.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -477,6 +478,59 @@ def test_population_at_q1_is_ideal_bit_for_bit_through_ghost_norm(dev):
     for leaves, launches in runs[1:]:
         assert launches == runs[0][1] == 29 * 4 * 2
         assert all(torch.equal(a, b) for a, b in zip(runs[0][0], leaves))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decaph_round_on_real_rows_matches_the_padded_round(dev, dtype,
+                                                            monkeypatch):
+    """One fused DeCaPH round at sigma 0 of SmolLM-360M's width at 2
+    layers, untied, on 4 hospitals' draws of about 2 notes of 128 tokens
+    (pad 8): each slot clipped on its real rows only, against the same
+    round with every count forced to the pad.  The ghost passes' GEMMs and
+    ``ghost_norm`` then run at 1-8 rows instead of 8; the parameters agree
+    within 1e-5."""
+    import dataclasses
+
+    import repro_torch.arms as arms
+    import repro_torch.obs as obs
+    from repro_torch.arms import fused
+    from repro_torch.configs.base import dense_stack
+    from repro_torch.core.dp import DPConfig
+    from repro_torch.serve.federation import token_silos
+
+    cfg = get_config("smollm-360m").replace(
+        n_layers=2, stack=dense_stack(2), tie_embeddings=False,
+        param_dtype=dtype, compute_dtype=dtype)
+    model = transformer_model(cfg, device=dev)
+    silos = token_silos(cfg, hospitals=4, n_per=64, seq_len=128, seed=3)
+    run_cfg = arms.ArmConfig(rounds=1, batch_size=8, lr=0.05,
+                             use_secagg=False, clipping="ghost",
+                             dp=DPConfig(clip_norm=1.0, noise_multiplier=0.0))
+    stack_poisson = fused.stack_poisson
+
+    pads = []
+
+    def padded(*args, **kw):
+        cb = stack_poisson(*args, **kw)
+        pads.append(cb.masks.shape[-1])
+        return dataclasses.replace(cb, counts=np.full_like(cb.counts,
+                                                           pads[-1]))
+
+    out = {}
+    for mode in ("real", "padded"):
+        if mode == "padded":
+            monkeypatch.setattr(fused, "stack_poisson", padded)
+        with obs.recording() as rec:
+            rep = arms.run("decaph", model, silos, run_cfg)
+        out[mode] = (rep, rec.counter_totals())
+    (real, real_rows), (pad, pad_rows) = out["real"], out["padded"]
+    assert real.logs[0].aggregate_batch == pad.logs[0].aggregate_batch > 0
+    assert real_rows["rows.computed"] == real_rows["rows.real"]
+    assert pad_rows["rows.computed"] == 4 * pads[0]
+    for a, b in zip(tree_leaves(real.params), tree_leaves(pad.params)):
+        assert a.dtype == b.dtype
+        assert float((a.float() - b.float()).abs().max()) <= 1e-5
+    assert abs(real.logs[0].loss - pad.logs[0].loss) <= 1e-5
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -40,6 +40,7 @@ from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.core import accountant, dp
 from repro_torch.core.leader import leader_schedule
 from repro_torch.serve.federation import token_silos, transformer_model
+from repro_torch.tree import tree_leaves
 
 torch.set_num_threads(1)
 
@@ -239,3 +240,99 @@ def test_uniform_leaders_are_seeded_and_in_range():
     a = leader_schedule(4, 50, seed=1)
     np.testing.assert_array_equal(a, leader_schedule(4, 50, seed=1))
     assert a.min() >= 0 and a.max() < 4
+
+
+# -- the cohort step clips each slot's real rows -------------------------------
+
+
+class _OneRankMesh:
+    """A mesh executor of one rank whose hooks of ``arms.fused`` are the
+    identity: only whether it needs the slots' padded rows differs."""
+
+    def __init__(self, pads):
+        self.pads = pads
+
+    def pads_slots(self):
+        return self.pads
+
+    def slots(self, n):
+        return range(n)
+
+    def gather_slots(self, results, n):
+        return results
+
+    def example_sum(self, tree):
+        return tree
+
+
+@pytest.mark.parametrize("dtype,chunk", [("float32", None),
+                                         ("bfloat16", None),
+                                         ("bfloat16", 4)])
+def test_cohort_step_clips_each_slot_on_its_real_rows(dtype, chunk,
+                                                      monkeypatch):
+    """Slots that drew 0, a middle k, the pad and more than the pad (the
+    cohort's pad grown to the next power of two): each slot's clipped sum
+    and loss are those of its padded rows, within ROUND_ATOL; the empty
+    slot's are the padded path's zeros in its dtypes, loss 0, and it is
+    counted.  A mesh executor that needs the padded rows is handed them;
+    one that keeps slots whole, the real rows.  With a ghost chunk each
+    slot is handed whole chunks."""
+    cfg = get_smoke_config("smollm-360m").replace(
+        tie_embeddings=False, param_dtype=dtype, compute_dtype=dtype)
+    silos = token_silos(cfg, hospitals=4, n_per=16, seq_len=12, seed=0)
+    arm = arms.get("decaph")(transformer_model(cfg, ghost_chunk=chunk,
+                                               device="cpu"),
+                             silos, _cfg())
+    params = arm.init_params()
+    pad = arm.pad
+    counts = [0, pad // 2 - 1, pad, pad + 3]
+    pad_to = 1 << (pad + 3 - 1).bit_length()
+    bx = np.zeros((4, pad_to, 12), silos[0].x.dtype)
+    by = np.zeros((4, pad_to, 12), silos[0].y.dtype)
+    masks = np.zeros((4, pad_to), np.float32)
+    for s, k in enumerate(counts):
+        rows = np.arange(k) % len(silos[s])
+        bx[s, :k], by[s, :k], masks[s, :k] = \
+            silos[s].x[rows], silos[s].y[rows], 1.0
+    bx, by, masks = (torch.from_numpy(a) for a in (bx, by, masks))
+
+    clip, noised = arm._clip_fn, arm._noised
+    handed, sums = [], []
+    monkeypatch.setattr(arm, "_clip_fn", lambda p, b, m: (
+        handed.append(len(m)), clip(p, b, m))[1])
+    monkeypatch.setattr(arm, "_noised", lambda g, *a: (
+        sums.append(g), noised(g, *a))[1])
+
+    def step():
+        handed.clear()
+        sums.clear()
+        _, _, losses = arm._cohort_step(params, bx, by, masks, counts, 0,
+                                        [0, 1, 2, 3], 4, payloads="device")
+        return list(sums), losses
+
+    with obs.recording() as rec:
+        trimmed, losses = step()
+    assert rec.counter_totals()["clip.empty_slots"] == 1
+    whole = [-(-k // chunk) * chunk for k in counts[1:]] if chunk \
+        else counts[1:]
+    assert handed == whole
+    for s, k in enumerate(counts):
+        padded, loss = clip(params, {"x": bx[s], "y": by[s]}, masks[s])
+        pairs = list(zip(tree_leaves(trimmed[s]), tree_leaves(padded)))
+        if k == 0:
+            assert all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in pairs)
+            assert losses[s].dtype == loss.dtype
+            assert float(losses[s]) == float(loss) == 0.0
+            continue
+        for a, b in pairs:
+            np.testing.assert_allclose(a.float().numpy(), b.float().numpy(),
+                                       atol=ROUND_ATOL, rtol=0)
+        np.testing.assert_allclose(float(losses[s]), float(loss),
+                                   atol=ROUND_ATOL, rtol=0)
+    with fused.execution_context(_OneRankMesh(pads=True)):
+        step()
+    assert handed == [pad_to] * 4
+    with fused.execution_context(_OneRankMesh(pads=False)):
+        step()
+    assert handed == whole

@@ -436,8 +436,9 @@ def test_chunked_ghost_round_matches_reference(monkeypatch):
     ref = jarms.run("decaph", jmodel,
                     jax_token_silos(jcfg, hospitals=3, n_per=16, seq_len=12),
                     cfg(jarms, JDPConfig))
-    assert seen and all(c == chunk and b > c and b % c == 0
-                        for b, c in seen)
+    # each slot is handed its draw's rows in whole chunks, some in several
+    assert seen and all(c == chunk and b % c == 0 for b, c in seen)
+    assert any(b > c for b, c in seen)
     np.testing.assert_allclose([l.loss for l in ours.logs],
                                [l.loss for l in ref.logs], rtol=1e-5)
     diff = max(float(np.max(np.abs(a - np.asarray(b)))) for a, b in zip(
